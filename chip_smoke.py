@@ -1,27 +1,49 @@
-"""Drive vtamiq_tpu_torch's main path on one NVIDIA GPU and check it.
+"""Drive vtamiq_tpu_torch's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
 
-1. device  — a CUDA card is required; its name and power limit.
-2. build   — nvcc builds the kernels from vtamiq_tpu_torch/csrc (seconds and
-             the -Xptxas -v report).
-3. kernel  — the patch-gather kernel against its plain PyTorch version on the
-             same CUDA tensors, bit for bit (torch.equal): the scorer's shapes
-             (16 images 384x512x3, 500 patches of 16x16, bf16 out with the
-             normalization fused), an fp32 case without normalization, and an
-             odd width (481) with corners on and past the edges. Both timed
-             with CUDA events (median of 30 launches after warm-up).
-4. scorer  — VTAMIQScorer at full ViT-B/16-6L width, weights drawn from a
-             seeded torch.Generator: 8 synthetic 384x512 pairs in one batch
-             (finite scores; exactly one gather launch); 2 pairs scored in
-             fp32 on the CPU and on the card with TF32 off (|dq| <= 1e-3);
-             the encoder's tokens in bf16 on the card against fp32 on the
-             CPU (relative error <= 2e-2); pairs/s at batch 8.
-5. server  — ScoringServer on 127.0.0.1: 4 concurrent /score, one /compare,
-             one /healthz, all answered with 200 and finite values.
-6. kernels — one JSON object per kernel: time, bound, plain time, launches.
+1. device      — a CUDA card is required; its name and power limit.
+2. build       — nvcc builds the kernels from vtamiq_tpu_torch/csrc, one
+                 process per source, all at once (seconds and the -Xptxas -v
+                 report).
+3. kernel      — the patch-gather kernel against its plain PyTorch version on
+                 the same CUDA tensors, bit for bit (torch.equal): the
+                 scorer's shapes (16 images 384x512x3, 500 patches of 16x16,
+                 bf16 out with the normalization fused), an fp32 case without
+                 normalization, and an odd width (481) with corners on and
+                 past the edges. Both timed with CUDA events (median of 30
+                 launches after warm-up).
+4. attention   — the flash-attention forward, fused backward and split
+                 (dq, dkv) backward kernels against their plain versions at
+                 the 5000-patch shapes (16 rows, 12 heads, 5009 tokens padded
+                 to 5056, head dim 64, padded keys masked), in fp32 and bf16;
+                 bf16 kernels, plain versions and PyTorch's
+                 scaled_dot_product_attention timed with CUDA events.
+5. scorer      — VTAMIQScorer at full ViT-B/16-6L width, weights drawn from a
+                 seeded torch.Generator: 8 synthetic 384x512 pairs in one batch
+                 (finite scores; exactly one gather launch); 2 pairs scored in
+                 fp32 on the CPU and on the card with TF32 off (|dq| <= 1e-3);
+                 the encoder's tokens in bf16 on the card against fp32 on the
+                 CPU (relative error <= 2e-2); pairs/s at batch 8.
+6. server      — ScoringServer on 127.0.0.1: 4 concurrent /score, one /compare,
+                 one /healthz, all answered with 200 and finite values.
+7. scorer_5000p — VTAMIQScorer(patch_count=5000), batch 8, bf16: finite
+                 scores through 5 flash-forward launches and 1 gather launch;
+                 pairs/s; at batch 2 in fp32 (TF32 off) the forward with
+                 flash attention against the plain quadratic forward on the
+                 same patches (|dq| <= 1e-3).
+8. train_5000p — make_train_step at batch 8, bf16, AdamW(5e-5, wd 0.01),
+                 loss weights (1, 1, 1): 1 warm-up and 3 timed steps (5 flash
+                 forward and 5 fused backward launches each), one step with
+                 the split backward (5 dq and 5 dkv launches); in fp32 at
+                 batch 2 the fused and split backward's gradient norms agree
+                 (1e-4 relative), a step through the flash kernels against a
+                 step through plain attention (loss 1e-5), and the encoder's
+                 gradient through each (every tensor 1e-3 relative).
+9. kernels     — one JSON object per kernel: time, bound, plain time,
+                 library time, launches on the main path.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, so the
 exit code is not 0; with no CUDA device the script exits 1 before any result.
@@ -41,20 +63,32 @@ import time  # noqa: E402
 import urllib.request  # noqa: E402
 from concurrent.futures import ThreadPoolExecutor  # noqa: E402
 
+import copy  # noqa: E402
+
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from vtamiq_tpu_torch import _build  # noqa: E402
 from vtamiq_tpu_torch.inference import VTAMIQScorer  # noqa: E402
-from vtamiq_tpu_torch.ops import gather_kernel  # noqa: E402
+from vtamiq_tpu_torch.models.configs import VTAMIQConfig, get_vit_config  # noqa: E402
+from vtamiq_tpu_torch.models.vtamiq import init_vtamiq_params, vtamiq_forward  # noqa: E402
+from vtamiq_tpu_torch.ops import flash_kernel, gather_kernel  # noqa: E402
+from vtamiq_tpu_torch.ops.attention import make_attention_fn  # noqa: E402
+from vtamiq_tpu_torch.ops.sampling import PatchSampler  # noqa: E402
 from vtamiq_tpu_torch.serving import ScoringServer  # noqa: E402
-from vtamiq_tpu_torch.train.steps import ExtractConfig, make_extract_fn  # noqa: E402
+from vtamiq_tpu_torch.train.optim import Optimizer, build_freeze_mask  # noqa: E402
+from vtamiq_tpu_torch.train.steps import (ExtractConfig, make_extract_fn,  # noqa: E402
+                                          make_train_step, make_train_step_on_patches)
 
 SEED = 0
 H, W, C, P, N = 384, 512, 3, 16, 500
 PAIRS = 8
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+# special-function (exp) rate: 132 SMs x 16 results per clock x 1.83 GHz boost
+SFU_PER_S = 132 * 16 * 1.83e9
 FP32_Q_TOL = 1e-3             # card fp32 vs CPU fp32: summation order only
 # bf16 policy: the encoder's output tokens on the card in bf16 against the
 # CPU's in fp32, as a relative norm. bf16 keeps 8 significant bits (2^-8 =
@@ -112,8 +146,8 @@ def phase_build():
     info = _build.build_info()
     report = [ln.strip() for ln in info.log.splitlines()
               if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": info.seconds, "library": info.path.split("/")[-1],
-          "ptxas": report})
+    emit({"phase": "build", "seconds": info.seconds,
+          "libraries": [p.split("/")[-1] for p in info.paths], "ptxas": report})
 
 
 # ---------------------------------------------------------------------------
@@ -342,21 +376,400 @@ def phase_server(scorer, refs, dists):
         raise AssertionError("server phase failed")
 
 
+# ---------------------------------------------------------------------------
+# 4. attention kernels vs plain
+# ---------------------------------------------------------------------------
+
+N_LONG = 5000                   # BASELINE config 5: 5000 patches
+S_VALID = N_LONG + 9            # + CLS + 8 register tokens
+S_PAD = -(-S_VALID // flash_kernel.BLOCK) * flash_kernel.BLOCK   # 5056
+ROWS, HEADS, HEAD_DIM = 2 * PAIRS, 12, 64
+# kernel vs plain on the same card tensors. fp32: the same math in another
+# summation order (online against dense softmax; dq partials added with
+# atomics in no fixed order). bf16: both round p and ds to bf16, the kernel
+# relative to the running maximum and the plain version to the row's, so
+# terms differ by up to one bf16 ulp (2^-8).
+ATTN_TOL = {torch.float32: dict(out=1e-5, lse=1e-5, grad=1e-4),
+            torch.bfloat16: dict(out=2e-2, lse=2e-2, grad=2e-2)}
+# what each kernel must compute at least: matmuls of 2*S*S*D flops per
+# (row, head), and one exp per logit
+FLASH_MATMULS = {"flash_fwd": 2, "flash_bwd_fused": 5, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
+# the Pallas kernel bodies each CUDA kernel replaces
+FLASH_REPLACES = {"flash_fwd": "vtamiq_tpu/ops/attention.py:122",
+                  "flash_bwd_fused": "vtamiq_tpu/ops/attention.py:300",
+                  "flash_bwd_dq": "vtamiq_tpu/ops/attention.py:226",
+                  "flash_bwd_dkv": "vtamiq_tpu/ops/attention.py:260"}
+
+
+def rel_err(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def attention_inputs(dtype):
+    """(B, H, S, D) views of (B, S, H, D) tensors as the model builds them,
+    zero past the 5009 valid tokens (the padding), keys masked there; and
+    the backward's do, lse and delta from the plain forward."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    mask = torch.zeros(ROWS, S_PAD, dtype=torch.bool, device="cuda")
+    mask[:, :S_VALID] = True
+    ts = []
+    for _ in range(4):
+        t = torch.randn(ROWS, S_PAD, HEADS, HEAD_DIM, generator=gen, device="cuda")
+        t[:, S_VALID:] = 0
+        ts.append(t.to(dtype).transpose(1, 2))
+    q, k, v, do = ts
+    out, lse = flash_kernel.flash_forward_plain(q, k, v, mask)
+    return q, k, v, do, mask, lse, flash_kernel.delta_of(do, out)
+
+
+def flash_bound_ms(name, q, mask):
+    """Least time for a flash kernel at these inputs: its matmuls over the
+    valid queries and keys at the bf16 tensor-core rate, or its exps at the
+    special-function rate, or its bytes (each input read once, each output
+    written once) at the memory rate, whichever is largest."""
+    n = int(mask[0].sum())
+    pairs = ROWS * HEADS * n * n
+    flops = FLASH_MATMULS[name] * 2 * pairs * HEAD_DIM
+    tile = q.numel() * q.element_size()
+    vec = ROWS * HEADS * S_PAD * 4
+    nbytes = {"flash_fwd": 4 * tile + vec,
+              "flash_bwd_fused": 7 * tile + 2 * vec,
+              "flash_bwd_dq": 5 * tile + 2 * vec,
+              "flash_bwd_dkv": 6 * tile + 2 * vec}[name] + mask.numel()
+    times = {"operations": max(flops / BF16_FLOPS_PER_S, pairs / SFU_PER_S) * 1e3,
+             "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by, {"flops": flops, "exps": pairs, "bytes": nbytes}
+
+
+def phase_attention(card):
+    results = {}
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = ATTN_TOL[dtype]
+        q, k, v, do, mask, lse, delta = attention_inputs(dtype)
+        out_k, lse_k = flash_kernel.flash_forward(q, k, v, mask)
+        fused = flash_kernel.flash_backward_fused(q, k, v, do, lse, delta, mask)
+        dq = flash_kernel.flash_backward_dq(q, k, v, do, lse, delta, mask)
+        dk, dv = flash_kernel.flash_backward_dkv(q, k, v, do, lse, delta, mask)
+        torch.cuda.synchronize()
+        out_p, _ = flash_kernel.flash_forward_plain(q, k, v, mask)
+        grads_p = flash_kernel.flash_backward_plain(q, k, v, do, lse, delta, mask)
+        r = {"out_rel": rel_err(out_k, out_p),
+             "lse_abs": float((lse_k - lse).abs().max()),
+             "fused_rel": [rel_err(a, b) for a, b in zip(fused, grads_p)],
+             "split_rel": [rel_err(a, b) for a, b in zip((dq, dk, dv), grads_p)]}
+        name = str(dtype).replace("torch.", "")
+        results[name] = r
+        errs[name] = {"flash_fwd": float((out_k.float() - out_p.float()).abs().max()),
+                      "flash_bwd_fused": max(float((a.float() - b.float()).abs().max())
+                                             for a, b in zip(fused, grads_p)),
+                      "flash_bwd_dq": float((dq.float() - grads_p[0].float()).abs().max()),
+                      "flash_bwd_dkv": max(float((a.float() - b.float()).abs().max())
+                                           for a, b in zip((dk, dv), grads_p[1:]))}
+        ok = (r["out_rel"] <= tol["out"] and r["lse_abs"] <= tol["lse"] * max(
+            1.0, float(lse.abs().max())) and max(r["fused_rel"] + r["split_rel"]) <= tol["grad"])
+        if not ok:
+            emit({"phase": "attention", "results": results})
+            raise AssertionError(f"flash kernels != plain versions in {name}: {r}")
+        del out_k, lse_k, fused, dq, dk, dv, out_p, grads_p
+
+    # times at the main path's type, bf16
+    q, k, v, do, mask, lse, delta = attention_inputs(torch.bfloat16)
+    bwd_args = (q, k, v, do, lse, delta, mask)
+    ms = {"flash_fwd": median_ms(lambda: flash_kernel.flash_forward(q, k, v, mask), 2, 5),
+          "flash_bwd_fused": median_ms(lambda: flash_kernel.flash_backward_fused(*bwd_args), 2, 5),
+          "flash_bwd_dq": median_ms(lambda: flash_kernel.flash_backward_dq(*bwd_args), 2, 5),
+          "flash_bwd_dkv": median_ms(lambda: flash_kernel.flash_backward_dkv(*bwd_args), 2, 5)}
+    plain_fwd = median_ms(lambda: flash_kernel.flash_forward_plain(q, k, v, mask), 1, 3)
+    plain_bwd = median_ms(lambda: flash_kernel.flash_backward_plain(*bwd_args), 1, 3)
+    plain = {"flash_fwd": plain_fwd, "flash_bwd_fused": plain_bwd,
+             "flash_bwd_dq": plain_bwd, "flash_bwd_dkv": plain_bwd}
+    # the library yardstick: scaled_dot_product_attention with the boolean
+    # key mask; forward alone (no grad), and its backward alone (one
+    # autograd call over a saved forward; it computes dq, dk and dv)
+    attn_mask = mask[:, None, None, :]
+    with torch.no_grad():
+        sdpa_fwd = median_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask),
+                             2, 5)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=attn_mask)
+    sdpa_bwd = median_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True),
+                         2, 5)
+    del out, qg, kg, vg
+    library = {"flash_fwd": sdpa_fwd, "flash_bwd_fused": sdpa_bwd,
+               "flash_bwd_dq": sdpa_bwd, "flash_bwd_dkv": sdpa_bwd}
+    table = {}
+    for name in FLASH_MATMULS:
+        bound, by, work = flash_bound_ms(name, q, mask)
+        table[name] = {"ms": ms[name], "plain_ms": plain[name], "library_ms": library[name],
+                       "bound_ms": bound, "bound_by": by, "work": work,
+                       "max_abs_err": errs["bfloat16"][name]}
+    emit({"phase": "attention", "shape": f"q, k, v ({ROWS}, {HEADS}, {S_PAD}, {HEAD_DIM}) "
+          f"views of (B, S, H, D), {S_VALID} valid keys", "results": results,
+          "tolerances": {str(d).replace("torch.", ""): t for d, t in ATTN_TOL.items()},
+          "bf16": table, "library_call": "torch.nn.functional.scaled_dot_product_attention, "
+          "bool mask; backward: torch.autograd.grad over a saved forward", "card": card})
+    return table
+
+
+# ---------------------------------------------------------------------------
+# 7. scorer at 5000 patches
+# ---------------------------------------------------------------------------
+
+FP32_LONG_Q_TOL = 1e-3   # flash vs quadratic in fp32: summation order only
+
+
+def phase_scorer_5000p(card, refs, dists):
+    scorer = VTAMIQScorer(seed=SEED, device="cuda", patch_count=N_LONG)
+    scorer.score_batch(refs, dists)  # warm-up
+    # the main path: counts reset just before, read just after
+    flash_kernel.reset_launches()
+    gather_kernel.launches = 0
+    qs = scorer.score_batch(refs, dists)
+    launches = {"gather": gather_kernel.launches, **flash_kernel.launches}
+    expected = {"gather": 1, "flash_fwd": scorer.cfg.vit.effective_num_layers - 1,
+                "flash_bwd_fused": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    if not np.isfinite(qs).all():
+        raise AssertionError(f"non-finite 5000-patch scores: {qs}")
+    if launches != expected:
+        raise AssertionError(f"5000-patch scorer launches {launches}, expected {expected}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        scorer.score_batch(refs, dists)
+        times.append(time.perf_counter() - t0)
+    med = float(np.median(times))
+    del scorer
+
+    # fp32, TF32 off: flash against the quadratic forward on the same patches
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    s32 = VTAMIQScorer(seed=SEED, device="cuda", patch_count=N_LONG,
+                       compute_dtype=torch.float32)
+    extract = make_extract_fn(s32.sampler, ExtractConfig(patch_count=N_LONG, patch_dim=P,
+                                                         gather_dtype="float32"))
+    raw = torch.from_numpy(np.stack([np.stack([r, d]) for r, d in zip(refs[:2], dists[:2])]))
+    patches, pos, scales = extract(raw.cuda(), torch.Generator().manual_seed(SEED))
+    with torch.inference_mode():
+        q_flash = vtamiq_forward(s32.params, s32.cfg, patches, pos, scales,
+                                 compute_dtype=torch.float32, attention_fn=make_attention_fn())
+        q_quad = vtamiq_forward(s32.params, s32.cfg, patches, pos, scales,
+                                compute_dtype=torch.float32)
+    dq = float((q_flash - q_quad).abs().max())
+    emit({"phase": "scorer_5000p", "config": f"ViT-B/16 6 layers, 8 registers, {N_LONG} "
+          f"patches of 16x16, {H}x{W}, bf16", "q": [float(q) for q in qs],
+          "launches": launches, "expected_launches": expected, "batch": PAIRS,
+          "batch_s_median": med, "pairs_per_s": PAIRS / med,
+          "fp32_flash_vs_quadratic": dq, "fp32_tol": FP32_LONG_Q_TOL,
+          "q_fp32_flash": q_flash.tolist(), "q_fp32_quadratic": q_quad.tolist(), "card": card})
+    if not dq <= FP32_LONG_Q_TOL:
+        raise AssertionError(f"fp32 flash vs quadratic forward: |dq| {dq} > {FP32_LONG_Q_TOL}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 8. train step at 5000 patches
+# ---------------------------------------------------------------------------
+
+# fp32 checks at batch 2, TF32 off, flash attention against plain.
+# 1. Whole train steps (SGD, learning rate 1, no momentum, no clipping, so a
+#    step moves each parameter by minus its gradient): the loss is MAE alone
+#    against targets far above every score, so its gradient in q is exactly
+#    -1/B in every run, and the pairs are two unrelated images (the
+#    references of two different pairs). The loss is held to 1e-5 and the
+#    fused and split backward's gradient norms to 1e-4 of each other. The
+#    step's gradient against the plain step's is reported, not held: the
+#    DiffNet head is piecewise linear (ReLU, PReLU), so an input that moves
+#    by fp32 rounding can move its gradient by far more (H100 runs: the
+#    step's gradients 5.6e-3 apart, while the encoder's below, through
+#    smooth functions only, agree to 3e-6).
+# 2. The encoder alone, where every function is smooth: the gradient of a
+#    fixed random projection of its output tokens, through flash and through
+#    plain attention, each tensor within 1e-3 of its norm. The key
+#    projection's bias gets no gradient in exact arithmetic (softmax ignores
+#    a shift shared by a query's logits), so its gradient is rounding noise
+#    in both runs: held to 1e-6 of the whole gradient's norm instead.
+SPLIT_NORM_TOL = 1e-4    # fused vs split backward: atomics' order only
+PLAIN_LOSS_TOL = 1e-5    # flash vs plain attention, fp32
+ENCODER_GRAD_TOL = 1e-3  # flash vs plain, each encoder tensor, relative
+KEY_BIAS_TOL = 1e-6      # key biases, of the whole encoder gradient's norm
+FAR_TARGET = 10.0        # MAE targets, far above the model's scores
+
+
+def _flash_counts():
+    return dict(flash_kernel.launches)
+
+
+def phase_train_5000p(card, refs, dists):
+    cfg = VTAMIQConfig(vit=get_vit_config(num_keep_layers=6, num_extra_tokens=8))  # the scorer's
+    base = init_vtamiq_params(cfg, torch.Generator().manual_seed(SEED))
+    raw = torch.from_numpy(np.stack([np.stack([r, d]) for r, d in zip(refs, dists)])).cuda()
+    qs = torch.from_numpy(np.random.default_rng(SEED).uniform(0, 1, PAIRS).astype(np.float32)
+                          ).cuda()
+    lw = (1.0, 1.0, 1.0)
+    ecfg = ExtractConfig(patch_count=N_LONG, patch_dim=P)
+
+    # bf16, batch 8, AdamW(5e-5, wd 0.01) without clipping, as bench.py runs it
+    model = copy.deepcopy(base).cuda()
+    adamw = Optimizer("AdamW", lambda count: torch.tensor(5e-5), weight_decay=0.01,
+                      max_norm=float("inf"))
+    state = adamw.init({n: p.detach() for n, p in model.named_parameters()})
+    mask = build_freeze_mask(model, False)
+    step = make_train_step(cfg, PatchSampler(), ecfg, adamw)
+    sample_gen = torch.Generator().manual_seed(SEED)
+    model_gen = torch.Generator(device="cuda").manual_seed(SEED)
+    step(model, state, mask, raw, qs, PAIRS, lw, sample_gen, model_gen)  # warm-up
+    torch.cuda.synchronize()
+    # the main path: counts reset just before, read just after
+    flash_kernel.reset_launches()
+    gather_kernel.launches = 0
+    per_step, times = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        metrics, _ = step(model, state, mask, raw, qs, PAIRS, lw, sample_gen, model_gen)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])  # synchronizes
+        times.append(time.perf_counter() - t0)
+        per_step.append({"loss": loss, "grad_norm": gnorm})
+    launches = {"gather": gather_kernel.launches, **_flash_counts()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    layers = cfg.vit.effective_num_layers - 1
+    expected = {"gather": 3, "flash_fwd": 3 * layers, "flash_bwd_fused": 3 * layers,
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    if launches != expected:
+        raise AssertionError(f"train step launches {launches}, expected {expected}")
+    if not all(np.isfinite([s["loss"], s["grad_norm"]]).all() for s in per_step):
+        raise AssertionError(f"non-finite train metrics: {per_step}")
+
+    # the split backward (dq and dkv kernels), one step
+    split = make_train_step(cfg, PatchSampler(), ecfg, adamw,
+                            attention_fn=make_attention_fn(fused_bwd=False))
+    flash_kernel.reset_launches()
+    metrics, _ = split(model, state, mask, raw, qs, PAIRS, lw, sample_gen, model_gen)
+    split_launches = _flash_counts()
+    split_expected = {"flash_fwd": layers, "flash_bwd_fused": 0, "flash_bwd_dq": layers,
+                      "flash_bwd_dkv": layers}
+    if split_launches != split_expected or not np.isfinite(float(metrics["loss"])):
+        raise AssertionError(f"split train step launches {split_launches}, expected "
+                             f"{split_expected}; loss {float(metrics['loss'])}")
+    del model, state, step, split
+
+    # fp32, batch 2, TF32 off: fused vs split backward, flash vs plain attention
+    unrelated = torch.stack([raw[0:4:2, 0], raw[1:4:2, 0]], dim=1)  # (2, 2, H, W, 3)
+    checks = fp32_checks(cfg, base, unrelated)
+    emit({"phase": "train_5000p", "config": f"ViT-B/16 6 layers, 8 registers, {N_LONG} "
+          f"patches, {H}x{W}, bf16, batch {PAIRS}, AdamW(5e-5, wd 0.01), loss weights "
+          f"{lw}", "steps": per_step, "step_s": times, "step_s_median": float(np.median(times)),
+          "pairs_per_s": PAIRS / float(np.median(times)), "launches": launches,
+          "expected_launches": expected, "split_launches": split_launches,
+          "peak_memory_gb": peak_gb, **checks, "card": card})
+    if not checks["fused_vs_split_grad_norm_rel"] <= SPLIT_NORM_TOL:
+        raise AssertionError(f"fused vs split backward grad norm: {checks}")
+    if not (checks["flash_vs_plain_loss_rel"] <= PLAIN_LOSS_TOL
+            and checks["encoder_grad_rel_max"] <= ENCODER_GRAD_TOL
+            and checks["encoder_key_bias_err_of_total"] <= KEY_BIAS_TOL):
+        raise AssertionError(f"flash vs plain in fp32: {checks}")
+    return launches, split_launches
+
+
+def fp32_checks(cfg, base, raw):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    extract = make_extract_fn(PatchSampler(), ExtractConfig(patch_count=N_LONG, patch_dim=P,
+                                                            gather_dtype="float32"))
+    patches, pos, scales = extract(raw, torch.Generator().manual_seed(SEED + 1))
+    b = raw.shape[0]
+    targets = torch.full((b,), FAR_TARGET, device=raw.device)
+    flash, split = make_attention_fn(), make_attention_fn(fused_bwd=False)
+
+    steps = {}
+    for name, attention_fn in (("fused", flash), ("split", split), ("plain", None)):
+        model = copy.deepcopy(base).cuda()
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        sgd = Optimizer("SGD", lambda count: torch.tensor(1.0), max_norm=float("inf"))
+        step = make_train_step_on_patches(cfg, sgd, weighted_loss=True,
+                                          compute_dtype=torch.float32,
+                                          attention_fn=attention_fn)
+        metrics, q = step(model, sgd.init(before), build_freeze_mask(model, False), patches,
+                          pos, scales, targets, b, (1.0, 0.0, 0.0))
+        if not bool((q < FAR_TARGET).all()):
+            raise AssertionError(f"a score {q.tolist()} reached the MAE target {FAR_TARGET}")
+        steps[name] = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                       "delta": torch.cat([(p.detach() - before[n]).reshape(-1)
+                                           for n, p in model.named_parameters()])}
+        del model, before
+    f, s, p = steps["fused"], steps["split"], steps["plain"]
+
+    # the encoder alone: a fixed random projection of its output tokens
+    vit = copy.deepcopy(base.vit).cuda()
+    flat = (patches.flatten(0, 1), pos.flatten(0, 1),
+            None if scales is None else scales.flatten(0, 1))
+    proj = None
+    grads = {}
+    for name, attention_fn in (("flash", flash), ("plain", None)):
+        tokens = vit(*flat, compute_dtype=torch.float32, train=True, attention_fn=attention_fn)
+        if proj is None:
+            proj = torch.randn(tokens.shape, device=tokens.device,
+                               generator=torch.Generator(device=tokens.device).manual_seed(SEED))
+        named = dict(vit.named_parameters())
+        grads[name] = dict(zip(named, torch.autograd.grad((tokens * proj).sum(),
+                                                          list(named.values()))))
+    total = float(torch.sqrt(sum(g.norm() ** 2 for g in grads["plain"].values())))
+    rel = {n: float((grads["flash"][n] - g).norm() / g.norm())
+           for n, g in grads["plain"].items() if not n.endswith("attn.key.bias")}
+    key_bias = max(float((grads["flash"][n] - g).norm()) / total
+                   for n, g in grads["plain"].items() if n.endswith("attn.key.bias"))
+    worst = max(rel, key=rel.get)
+    return {"fp32_batch": b,
+            "step_pairs": "two unrelated images each, MAE against a far target",
+            "fused_vs_split_grad_norm_rel": abs(f["grad_norm"] - s["grad_norm"]) / s["grad_norm"],
+            "flash_vs_plain_loss_rel": abs(f["loss"] - p["loss"]) / abs(p["loss"]),
+            "flash_vs_plain_step_grad_rel": float((f["delta"] - p["delta"]).norm()
+                                                  / p["delta"].norm()),
+            "fp32_loss": {k: v["loss"] for k, v in steps.items()},
+            "fp32_grad_norm": {k: v["grad_norm"] for k, v in steps.items()},
+            "encoder_grad_rel_max": rel[worst], "encoder_worst_tensor": worst,
+            "encoder_key_bias_err_of_total": key_bias}
+
+
 def main():
     name, smi = phase_device()
     phase_build()
     k = phase_kernel()
+    attention = phase_attention(smi)
     scorer, refs, dists, launches = phase_scorer(smi)
     phase_server(scorer, refs, dists)
-    emit({"kernels": [{
+    del scorer
+    long_launches = phase_scorer_5000p(smi, refs, dists)
+    train_launches, split_launches = phase_train_5000p(smi, refs, dists)
+    main_launches = {"flash_fwd": long_launches["flash_fwd"],
+                     "flash_bwd_fused": train_launches["flash_bwd_fused"],
+                     "flash_bwd_dq": split_launches["flash_bwd_dq"],
+                     "flash_bwd_dkv": split_launches["flash_bwd_dkv"]}
+    launches_on = {"flash_fwd": "one scorer_5000p batch of 8 pairs",
+                   "flash_bwd_fused": "three train_5000p steps",
+                   "flash_bwd_dq": "one train_5000p step with the split backward",
+                   "flash_bwd_dkv": "one train_5000p step with the split backward"}
+    kernels = [{
         "name": "gather_patches", "route": "cuda",
         "source": "vtamiq_tpu_torch/csrc/gather_patches.cu",
         "replaces": "vtamiq_tpu/ops/gather_kernel.py:51",
         "replaces_fn": "vtamiq_tpu/ops/gather_kernel.py::_vmem_gather_kernel",
-        "launches": launches, "exact": True, "max_abs_err": k["max_abs_err"],
+        "launches": launches, "launches_on": "one scorer batch of 8 pairs",
+        "exact": True, "max_abs_err": k["max_abs_err"],
         "ms": k["kernel_ms"], "kernel_ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
-        "card": smi}]})
+        "card": smi}]
+    for kname, row in attention.items():
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "vtamiq_tpu_torch/csrc/flash_attention.cu",
+            "replaces": FLASH_REPLACES[kname], "launches": main_launches[kname],
+            "launches_on": launches_on[kname], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"], "card": smi})
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -177,3 +177,123 @@ def test_adapters_raise():
     _, tcfg = configs()
     with pytest.raises(NotImplementedError, match="adapters"):
         tvit.ViT(dataclasses.replace(tcfg.vit, num_adapters=1))
+
+
+# ---------------------------------------------------------------------------
+# attention_fn plumbing, training mode: dropout and DropPath
+# ---------------------------------------------------------------------------
+
+from vtamiq_tpu.ops import attention as jattention  # noqa: E402
+from vtamiq_tpu_torch.ops import attention as tattention  # noqa: E402
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_attention_fn_flash_matches_quadratic_and_jax(masked):
+    """The flash attention function threaded through mhsa, encoder_layer
+    and vit_forward (threshold 0: every layer but the last, whose q_len path
+    stays quadratic, takes it) against the quadratic forward and against
+    the JAX forward with its own flash function, fp32."""
+    jcfg, tcfg = configs()
+    jp = jvtamiq.init_vtamiq_params(jax.random.PRNGKey(8), jcfg)
+    tp = carried(jp, tvtamiq.VTAMIQ(tcfg))
+    patches, pos, mask, _ = inputs(9)
+    pm = t(mask) if masked else None
+    with torch.no_grad():
+        quad = tp(t(patches), t(pos), patch_mask=pm, compute_dtype=torch.float32)
+        flash = tp(t(patches), t(pos), patch_mask=pm, compute_dtype=torch.float32,
+                   attention_fn=tattention.make_attention_fn(threshold=0))
+    want = jvtamiq.vtamiq_forward(jp, jcfg, jnp.asarray(patches), jnp.asarray(pos),
+                                  patch_mask=jnp.asarray(mask) if masked else None,
+                                  compute_dtype=jnp.float32,
+                                  attention_fn=jattention.make_attention_fn(threshold=0))
+    np.testing.assert_allclose(flash.numpy(), quad.numpy(), rtol=0, atol=FP32_TOL)
+    np.testing.assert_allclose(flash.numpy(), np.asarray(want), rtol=0, atol=FP32_TOL)
+
+
+def test_mhsa_takes_attention_fn_only_without_q_len():
+    _, tcfg = configs()
+    layer = tvit.init_params_(tvit.EncoderLayer(tcfg.vit), torch.Generator().manual_seed(0))
+    x = torch.randn(2, 11, 64, generator=torch.Generator().manual_seed(1))
+    calls = []
+
+    def spy(q, k, v, mask):
+        calls.append(q.shape)
+        return tattention.make_attention_fn(threshold=10**9)(q, k, v, mask)
+
+    with torch.no_grad():
+        full = tvit.mhsa(layer.attn, x, 4, attention_fn=spy)
+        plain = tvit.mhsa(layer.attn, x, 4)
+        tvit.mhsa(layer.attn, x, 4, q_len=3, attention_fn=spy)
+    assert calls == [(2, 11, 4, 16)]
+    np.testing.assert_allclose(full.numpy(), plain.numpy(), rtol=0, atol=FP32_TOL)
+
+
+def test_drop_path_is_per_sample_with_rescale():
+    x = torch.ones(4000, 3, 5)
+    gen = torch.Generator().manual_seed(0)
+    y = tvit.drop_path(x, 0.25, gen)
+    per_sample = y.reshape(4000, -1)
+    kept = per_sample[:, 0] != 0
+    # every sample is kept whole (scaled by 1/keep) or dropped whole
+    assert torch.all(per_sample[kept] == 1 / 0.75) and torch.all(per_sample[~kept] == 0)
+    assert abs(float(kept.float().mean()) - 0.75) < 0.03  # 4000 draws: sd 0.007
+    assert tvit.drop_path(x, 0.0, gen) is x
+
+
+def test_predictor_dropout_is_elementwise_with_rescale():
+    x = torch.ones(200, 64)
+    y = tvit.dropout(x, 0.1, torch.Generator().manual_seed(0))
+    kept = y != 0
+    assert torch.all(y[kept] == 1 / 0.9)
+    assert abs(float(kept.float().mean()) - 0.9) < 0.01  # 12800 draws: sd 0.003
+    assert 0 < int((~kept).any(dim=1).sum()) < 200       # not whole rows
+
+
+def _head_cfgs(**over):
+    jcfg, tcfg = configs()
+    return dataclasses.replace(tcfg, **over)
+
+
+def _forward(tp, cfg, train, seed=None, **kw):
+    patches, pos, mask, _ = inputs(11)
+    gen = None if seed is None else torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        return tvtamiq.vtamiq_forward(tp, cfg, t(patches), t(pos), patch_mask=t(mask),
+                                      compute_dtype=torch.float32, train=train,
+                                      generator=gen, **kw)
+
+
+def test_train_mode_draws_only_with_a_generator():
+    """rg_path_drop and predictor_dropout act in training with a generator;
+    training without one, or with both probabilities 0, is the eval
+    forward; the same seed gives the same draws."""
+    jcfg, tcfg = configs()
+    tp = carried(jvtamiq.init_vtamiq_params(jax.random.PRNGKey(12), jcfg), tvtamiq.VTAMIQ(tcfg))
+    cfg = dataclasses.replace(tcfg, rg_path_drop=0.5, predictor_dropout=0.5)
+    eval_q = _forward(tp, cfg, False)
+    assert torch.equal(_forward(tp, cfg, True), eval_q)
+    assert torch.equal(_forward(tp, cfg, False, seed=0), eval_q)
+    off = dataclasses.replace(cfg, rg_path_drop=0.0, predictor_dropout=0.0)
+    assert torch.equal(_forward(tp, off, True, seed=0), eval_q)
+    a, b = _forward(tp, cfg, True, seed=0), _forward(tp, cfg, True, seed=0)
+    assert torch.equal(a, b) and not torch.equal(a, eval_q)
+    assert not torch.equal(a, _forward(tp, cfg, True, seed=1))
+
+
+@pytest.mark.parametrize("active", [False, True])
+def test_encoder_drop_path_follows_vit_path_drop_active(active):
+    jcfg, tcfg = configs()
+    tp = carried(jvtamiq.init_vtamiq_params(jax.random.PRNGKey(13), jcfg), tvtamiq.VTAMIQ(tcfg))
+    vit = dataclasses.replace(tcfg.vit, path_drop_prob=0.5, vit_path_drop_active=active)
+    cfg = dataclasses.replace(tcfg, vit=vit, rg_path_drop=0.0, predictor_dropout=0.0)
+    same = torch.equal(_forward(tp, cfg, True, seed=0), _forward(tp, cfg, False))
+    assert same != active
+
+
+def test_remat_raises_in_training_only():
+    jcfg, tcfg = configs()
+    tp = carried(jvtamiq.init_vtamiq_params(jax.random.PRNGKey(14), jcfg), tvtamiq.VTAMIQ(tcfg))
+    cfg = dataclasses.replace(tcfg, vit=dataclasses.replace(tcfg.vit, remat=True))
+    assert torch.equal(_forward(tp, cfg, False), _forward(tp, tcfg, False))
+    with pytest.raises(NotImplementedError, match="remat"):
+        _forward(tp, cfg, True, seed=0)

@@ -199,9 +199,37 @@ def test_cpu_scoring_launches_no_kernel():
     (500, False, 8), (500, True, None), (2047, False, None), (2048, False, None),
     (2048, True, 2), (5000, False, 2), (5000, False, 4), (5000, False, 64)])
 def test_attention_policy_follows_jax(count, train, batch):
+    """The port returns its flash attention function wherever the JAX
+    package returns its own, and None (plain attention) wherever JAX does."""
     want = jattention.choose_attention_fn(count, train=train, batch_pairs=batch)
-    if want is None:
-        assert tattention.choose_attention_fn(count, train=train, batch_pairs=batch) is None
-    else:
-        with pytest.raises(NotImplementedError, match="flash"):
-            tattention.choose_attention_fn(count, train=train, batch_pairs=batch)
+    got = tattention.choose_attention_fn(count, train=train, batch_pairs=batch)
+    assert (got is None) == (want is None)
+    assert got is None or callable(got)
+
+
+def test_scorer_past_the_threshold_takes_flash_and_matches_jax(monkeypatch):
+    """2048 patches: with the quadratic budget set to 0 the scorer's policy
+    takes flash attention (the JAX package's choice for batches whose logits
+    do not fit); q held against the JAX forward with JAX's flash attention
+    function on the same patches, fp32, 1e-5."""
+    n, seed = 2048, 3
+    jp = jinit(jax.random.PRNGKey(2), JCFG)
+    tp = VTAMIQ(CFG)
+    tp.load_state_dict(params_from_jax(_flatten(jp)), strict=True)
+    calls = []
+    flash = tattention.flash_attention
+    monkeypatch.setattr(tattention, "QUAD_INFER_LOGITS_BUDGET", 0)
+    monkeypatch.setattr(tattention, "flash_attention",
+                        lambda *a, **kw: calls.append(a[0].shape) or flash(*a, **kw))
+    s = VTAMIQScorer(cfg=CFG, params=tp, patch_count=n, device="cpu",
+                     compute_dtype=torch.float32, seed=seed)
+    refs, dists = zip(pair(0), pair(1))
+    got = s.score_batch(list(refs), list(dists))
+    assert calls == [(4, n + CFG.vit.num_tokens, 4, 16)]  # every layer but the last
+
+    raw = torch.from_numpy(np.stack([np.stack(p) for p in zip(refs, dists)]))
+    patches, pos, scales = s._extract(raw, torch.Generator().manual_seed(seed))
+    want = jforward(jp, JCFG, jnp.asarray(patches.numpy()), jnp.asarray(pos.numpy()),
+                    None if scales is None else jnp.asarray(scales.numpy()),
+                    compute_dtype=jnp.float32, attention_fn=jattention.make_attention_fn())
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-5)

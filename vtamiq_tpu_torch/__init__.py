@@ -7,8 +7,10 @@ Layer map (module names follow the JAX package):
                 ``nn.Module`` parameter holders plus functions on tensors,
                 and the JAX checkpoint reader.
 - ``ops``     — uniform patch sampling, patch extraction, the patch-gather
-                CUDA kernel's wrapper, the attention policy.
-- ``train``   — the extraction stage (``ExtractConfig``, ``make_extract_fn``).
+                and flash-attention CUDA kernels' wrappers, flash attention
+                and the attention policy, the training losses.
+- ``train``   — the optimizer chain and freeze masks (``optim``), the
+                extraction stage and the train/eval steps (``steps``).
 - ``inference`` / ``serving`` — ``VTAMIQScorer`` and the HTTP server.
 - ``csrc`` + ``_build`` — CUDA sources, built with nvcc at first use.
 

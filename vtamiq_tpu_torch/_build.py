@@ -1,14 +1,14 @@
-"""Build and load the port's CUDA kernels: ``nvcc`` into a plain-C shared
-library, loaded with ``ctypes``.
+"""Build and load the port's CUDA kernels: ``nvcc`` into plain-C shared
+libraries, loaded with ``ctypes``.
 
-Every ``csrc/*.cu`` source compiles in one ``nvcc`` call for ``sm_90a``
-into ``_build/libvtamiq_kernels.<sha256 of the sources and flags>.so``. The
-library is written under a temporary name and moved into place with
-``os.replace``, so no lock file exists and a build cut off halfway leaves
-nothing that a later build waits on. The sources include no PyTorch header,
-so a build takes seconds and needs neither ``ninja`` nor
-``torch.utils.cpp_extension``. It runs at the first kernel launch, never at
-import.
+Each ``csrc/*.cu`` source compiles for ``sm_90a`` into its own
+``_build/lib<source>.<sha256 of the source, the headers and the flags>.so``;
+the ``nvcc`` processes of all sources run at the same time. A library is
+written under a temporary name and moved into place with ``os.replace``, so
+no lock file exists and a build cut off halfway leaves nothing that a later
+build waits on. The sources include no PyTorch header, so a build takes
+seconds and needs neither ``ninja`` nor ``torch.utils.cpp_extension``. It
+runs at the first kernel launch, never at import.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import tempfile
 import threading
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -33,24 +33,52 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
 _c_float_p = ctypes.POINTER(ctypes.c_float)
+_c_ll_p = ctypes.POINTER(ctypes.c_longlong)
+_FLASH_BWD_TAIL = [_c_ll_p, _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p]
 # C signatures of the library's entry points (pointers and the stream as
 # c_void_p, so 64-bit addresses are never cut to a 32-bit int)
 _SIGNATURES = {
     "vtamiq_gather_patches": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                               _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
                               _c_int, _c_float_p, _c_float_p, _c_int, _c_void_p],
+    # q, k, v, mask, out, lse, strides, B, H, S, D, is_bf16, stream
+    "vtamiq_flash_fwd": [_c_void_p] * 6 + [_c_ll_p, _c_int, _c_int, _c_int, _c_int,
+                                           _c_int, _c_void_p],
+    # q, k, v, do, lse, delta, mask, dq_acc, dk, dv, strides, B, H, S, D, is_bf16, stream
+    "vtamiq_flash_bwd_fused": [_c_void_p] * 10 + _FLASH_BWD_TAIL,
+    # q, k, v, do, lse, delta, mask, dq, strides, B, H, S, D, is_bf16, stream
+    "vtamiq_flash_bwd_dq": [_c_void_p] * 8 + _FLASH_BWD_TAIL,
+    # q, k, v, do, lse, delta, mask, dk, dv, strides, B, H, S, D, is_bf16, stream
+    "vtamiq_flash_bwd_dkv": [_c_void_p] * 9 + _FLASH_BWD_TAIL,
 }
 
 
 @dataclass
 class BuildInfo:
-    path: str
-    seconds: float  # 0.0 when the library was already built
+    paths: List[str]
+    seconds: float  # wall time of the parallel build; 0.0 when all were built
     log: str        # nvcc's output (the -Xptxas -v register/smem report)
 
 
+class Library:
+    """Every entry point of ``_SIGNATURES`` as an attribute, from whichever
+    of the loaded libraries defines it."""
+
+    def __init__(self, cdlls: List[ctypes.CDLL]):
+        for name, argtypes in _SIGNATURES.items():
+            for lib in cdlls:
+                if hasattr(lib, name):
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    setattr(self, name, fn)
+                    break
+            else:
+                raise RuntimeError(f"no kernel library defines {name}")
+
+
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_lib: Optional[Library] = None
 _info: Optional[BuildInfo] = None
 
 
@@ -71,61 +99,73 @@ def find_nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
-def _sources():
-    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")) +
-                  glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+def _sources() -> List[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
-def library_path() -> str:
+def library_path(src: str) -> str:
+    """Where the library of one ``.cu`` source is built."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(os.path.basename(src).encode())
-        with open(src, "rb") as f:
-            h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libvtamiq_kernels.{h.hexdigest()[:16]}.so")
+    for f in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        h.update(os.path.basename(f).encode())
+        with open(f, "rb") as fh:
+            h.update(fh.read())
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}.{h.hexdigest()[:16]}.so")
 
 
 def build() -> BuildInfo:
-    """Compile the kernels unless this exact build exists; returns where the
-    library is, how long the build took and what nvcc printed."""
-    path = library_path()
-    if os.path.isfile(path):
-        return BuildInfo(path, 0.0, "")
+    """Compile every source whose exact build does not exist, all ``nvcc``
+    processes at once; returns the libraries, the build's wall time and
+    what nvcc printed."""
+    paths = [library_path(src) for src in _sources()]
+    todo = [(src, path) for src, path in zip(_sources(), paths) if not os.path.isfile(path)]
+    if not todo:
+        return BuildInfo(paths, 0.0, "")
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(prefix=".tmp-", suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    srcs = [s for s in _sources() if s.endswith(".cu")]
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *srcs]
+    jobs = []
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        for src, path in todo:
+            fd, tmp = tempfile.mkstemp(prefix=".tmp-", suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+            jobs.append((cmd, proc, tmp, path))
+        logs, failed = [], []
+        for cmd, proc, tmp, path in jobs:
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+            else:
+                os.replace(tmp, path)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-        os.replace(tmp, path)
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return BuildInfo(path, seconds, log)
+        for _, proc, tmp, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return BuildInfo(paths, seconds, "".join(logs))
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernels' library, built at first use and loaded once per process."""
+def load_library() -> Library:
+    """The kernels' entry points, built at first use and loaded once per
+    process."""
     global _lib, _info
     with _lock:
         if _lib is None:
             _info = build()
-            lib = ctypes.CDLL(_info.path)
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = Library([ctypes.CDLL(p) for p in _info.paths])
         return _lib
 
 
 def build_info() -> Optional[BuildInfo]:
-    """How this process's library was obtained (None before the first load)."""
+    """How this process's libraries were obtained (None before the first load)."""
     return _info

@@ -4,7 +4,9 @@ Port of ``vtamiq_tpu/inference.py``. The main path of a call: the pairs
 group by the shape they are scored at; each group goes to the device as one
 (B, 2, H, W, 3) tensor; per repeat, corners are drawn on the CPU, one gather
 kernel launch per scale cuts the patches (normalized, in the compute dtype)
-and one forward of the dual-tower model gives the scores.
+and one forward of the dual-tower model gives the scores. Long sequences
+whose quadratic attention would not fit take the flash attention kernels
+(``ops/attention.py::choose_attention_fn``, the JAX package's policy).
 
 Example:
     scorer = VTAMIQScorer.from_checkpoint("best.npz")   # device="cuda"
@@ -177,8 +179,9 @@ class VTAMIQScorer:
         out = np.empty(len(refs), float)
         vit = self.cfg.vit
         for size, idxs in groups.items():
-            choose_attention_fn(self.patch_count, train=False, batch_pairs=len(idxs),
-                                num_heads=vit.num_heads, num_extra_tokens=vit.num_tokens)
+            attention_fn = choose_attention_fn(
+                self.patch_count, train=False, batch_pairs=len(idxs),
+                num_heads=vit.num_heads, num_extra_tokens=vit.num_tokens)
             hw = None
             if self.size_buckets is not None:
                 raw = np.stack([np.stack([pad_to_bucket(self._to_host(refs[i]), size),
@@ -196,7 +199,8 @@ class VTAMIQScorer:
                 for _ in range(self.num_repeats):
                     patches, pos, scales = self._extract(x, self._generator, hw)
                     q = vtamiq_forward(self.params, self.cfg, patches, pos, scales,
-                                       compute_dtype=self.compute_dtype)
+                                       compute_dtype=self.compute_dtype,
+                                       attention_fn=attention_fn)
                     reps.append(q.cpu().numpy().astype(float))
             out[idxs] = np.mean(reps, axis=0)
         return out

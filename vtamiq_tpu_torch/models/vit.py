@@ -13,18 +13,23 @@ numerics:
 - CLS takes positional slot 0; register tokens take no pos or scale
   embedding; the last layer computes only the leading ``num_tokens`` queries.
 
+Training: ``train=True`` with a ``torch.Generator`` (on the compute
+device) turns on the encoder DropPath when ``cfg.vit_path_drop_active``
+(timm semantics: a per-sample keep mask and a 1/keep rescale; the draws
+cannot match JAX's PRNG). ``attention_fn`` (``ops/attention.py``) replaces
+the quadratic attention of every layer but the last, whose ``q_len`` path
+stays quadratic, as in the JAX package.
+
 Left out, against the JAX package: the token axis is not padded to a
 multiple of 128 (that is TPU lane alignment; masking of invalid keys is
-kept), Houlsby adapters raise at construction, encoder DropPath and remat
-are training-only and are not ported, and attention is always the plain
-quadratic form here: ``ops/attention.py::choose_attention_fn`` refuses the
-shapes where the JAX package would take its flash kernel.
+kept; the flash path pads to its own tile), Houlsby adapters raise at
+construction, and ``cfg.remat`` raises in training.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -201,16 +206,25 @@ def dense(p: Dense, x: torch.Tensor, dtype=None, out_dtype=None) -> torch.Tensor
 
 def mhsa(p: Attention, x: torch.Tensor, num_heads: int,
          mask: Optional[torch.Tensor] = None, logits_fp32: bool = False,
-         q_len: Optional[int] = None, mm_dtype=None) -> torch.Tensor:
-    """Multi-head self-attention, the plain quadratic form.
+         q_len: Optional[int] = None, mm_dtype=None,
+         attention_fn: Optional[Callable] = None) -> torch.Tensor:
+    """Multi-head self-attention.
 
     x: (B, S, H); mask: optional (B, S) bool of valid keys (invalid keys get
     NEG_INF logits). ``q_len`` restricts the queries to the first q_len
-    tokens (keys and values stay full): output (B, q_len, H)."""
+    tokens (keys and values stay full): output (B, q_len, H).
+    ``attention_fn(q, k, v, mask)`` on (B, S, heads, D) tensors replaces the
+    plain quadratic form when ``q_len`` is None."""
     b, s, h = x.shape
     d = h // num_heads
     dtype = x.dtype
     mm = mm_dtype or dtype
+
+    if attention_fn is not None and q_len is None:
+        q, k, v = (dense(dp, x, mm).reshape(b, s, num_heads, d)
+                   for dp in (p.query, p.key, p.value))
+        ctx = attention_fn(q, k, v, mask).reshape(b, s, h)
+        return dense(p.out, ctx, mm, out_dtype=dtype)
 
     xq = x if q_len is None else x[:, :q_len]
     sq = xq.shape[1]
@@ -235,20 +249,47 @@ def mlp_block(p: Mlp, x: torch.Tensor, mm_dtype=None) -> torch.Tensor:
     return dense(p.fc2, y, mm_dtype, out_dtype=x.dtype)
 
 
+def dropout(x: torch.Tensor, prob: float, generator: Optional[torch.Generator],
+            shape=None) -> torch.Tensor:
+    """Keep each element (or each cell of a ``shape`` that broadcasts to x)
+    with probability 1 - prob and scale it by 1/keep; prob 0 is the identity.
+    ``generator`` lives on x's device."""
+    if prob <= 0.0:
+        return x
+    keep = 1.0 - prob
+    kept = torch.rand(x.shape if shape is None else shape, generator=generator,
+                      device=x.device) < keep
+    return torch.where(kept, x / keep, torch.zeros_like(x))
+
+
+def drop_path(x: torch.Tensor, prob: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Per-sample stochastic depth (timm semantics): each item of the batch
+    axis is kept whole with probability 1 - prob, scaled by 1/keep."""
+    return dropout(x, prob, generator, (x.shape[0],) + (1,) * (x.dim() - 1))
+
+
 def encoder_layer(p: EncoderLayer, x: torch.Tensor, cfg: ViTConfig, mask=None,
-                  q_len: Optional[int] = None, mm_dtype=None) -> torch.Tensor:
-    """Pre-LN block: x += LS1(MHSA(LN(x))); x += LS2(MLP(LN(x))). With
-    ``q_len`` the block's output covers only the first q_len tokens."""
+                  q_len: Optional[int] = None, mm_dtype=None, train: bool = False,
+                  generator: Optional[torch.Generator] = None,
+                  attention_fn: Optional[Callable] = None) -> torch.Tensor:
+    """Pre-LN block: x += DP(LS1(MHSA(LN(x)))); x += DP(LS2(MLP(LN(x)))).
+    With ``q_len`` the block's output covers only the first q_len tokens.
+    DropPath acts in training with a generator when
+    ``cfg.vit_path_drop_active``."""
+    dp_prob = cfg.path_drop_prob if (train and cfg.vit_path_drop_active
+                                     and generator is not None) else 0.0
     h = mhsa(p.attn, layer_norm(p.ln1, x), cfg.num_heads, mask=mask,
-             logits_fp32=cfg.attn_logits_fp32, q_len=q_len, mm_dtype=mm_dtype)
+             logits_fp32=cfg.attn_logits_fp32, q_len=q_len, mm_dtype=mm_dtype,
+             attention_fn=attention_fn)
     if cfg.use_layer_scale:
         h = h * p.ls1.to(h.dtype)
+    h = drop_path(h, dp_prob, generator)
     x = (x if q_len is None else x[:, :q_len]) + h
 
     h = mlp_block(p.mlp, layer_norm(p.ln2, x), mm_dtype)
     if cfg.use_layer_scale:
         h = h * p.ls2.to(h.dtype)
-    return x + h
+    return x + drop_path(h, dp_prob, generator)
 
 
 # --------------------------------------------------------------------------
@@ -310,14 +351,21 @@ def embed_patches(p: ViT, cfg: ViTConfig, patches: torch.Tensor, pos: torch.Tens
 def vit_forward(p: ViT, cfg: ViTConfig, patches: torch.Tensor, pos: torch.Tensor,
                 scales: Optional[torch.Tensor] = None, *, tokens_only: bool = True,
                 patch_mask: Optional[torch.Tensor] = None,
-                compute_dtype=torch.bfloat16) -> torch.Tensor:
+                compute_dtype=torch.bfloat16, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                attention_fn: Optional[Callable] = None) -> torch.Tensor:
     """ViT forward over a sparse patch sequence.
 
     patches: (B, N, P, P, 3); pos: (B, N, 2) uv centers in [0, 1);
     scales: optional (B, N) ints; patch_mask: optional (B, N) bool, False =
     padded patch, excluded as a key (CLS and register tokens are always
     valid). Returns fp32 (B, num_tokens, H) when ``tokens_only`` (the last
-    layer then computes only those queries), else (B, T + N, H)."""
+    layer then computes only those queries), else (B, T + N, H). ``train``,
+    ``generator`` and ``attention_fn``: see ``encoder_layer``."""
+    if train and cfg.remat:
+        raise NotImplementedError("ViTConfig.remat (recomputing encoder layers in the "
+                                  "backward) is not ported to vtamiq_tpu_torch yet; "
+                                  "see ROADMAP.md")
     b = patches.shape[0]
     t = cfg.num_tokens
     _, mm_dtype = resolve_dtypes(compute_dtype)
@@ -333,7 +381,8 @@ def vit_forward(p: ViT, cfg: ViTConfig, patches: torch.Tensor, pos: torch.Tensor
     for i in range(n_layers):
         q_len = t if (tokens_only and i == n_layers - 1) else None
         x = encoder_layer(layers[f"layer_{i}"], x, cfg, mask=mask, q_len=q_len,
-                          mm_dtype=mm_dtype)
+                          mm_dtype=mm_dtype, train=train, generator=generator,
+                          attention_fn=attention_fn)
 
     x = layer_norm(p.encoder.final_ln, x).float()
     return x[:, :t] if tokens_only else x

@@ -1,7 +1,10 @@
 """VTAMIQ in PyTorch: dual-tower ViT + DiffNet + quality regressor.
 
-Port of ``vtamiq_tpu/models/vtamiq.py`` (inference only: no dropout and no
-DiffNet DropPath, which act only in training). The two towers fold into one
+Port of ``vtamiq_tpu/models/vtamiq.py``. In training (``train=True`` with a
+``torch.Generator`` on the compute device) the DiffNet residual groups'
+DropPath (``rg_path_drop``) and the q predictor's two dropouts
+(``predictor_dropout``) act; their draws cannot match JAX's PRNG, so parity
+tests set both to 0. The two towers fold into one
 encoder batch of 2B rows; the CLS difference and the whole head run in fp32
 whatever the backbone's compute dtype, because ``cls_ref - cls_dist``
 cancels and must not be rounded to bf16.
@@ -13,13 +16,13 @@ PReLU layers have one shared slope (init 0.25).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
 
 from .configs import VTAMIQConfig
-from .vit import Dense, ViT, dense, init_params_, vit_forward
+from .vit import Dense, ViT, dense, drop_path, dropout, init_params_, vit_forward
 
 
 # --------------------------------------------------------------------------
@@ -169,23 +172,37 @@ def rcab(p: RCAB, x: torch.Tensor) -> torch.Tensor:
     return x + calayer(p.ca, h)
 
 
-def residual_group(p: ResidualGroup, x: torch.Tensor) -> torch.Tensor:
+def _active(prob: float, train: bool, generator: Optional[torch.Generator]) -> float:
+    return prob if (train and generator is not None) else 0.0
+
+
+def residual_group(p: ResidualGroup, x: torch.Tensor, path_drop_prob: float = 0.0,
+                   train: bool = False,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """x + DP(conv(RCABs(x))); DropPath acts in training with a generator."""
     h = x
     for i in range(len(p.rcabs)):
         h = rcab(p.rcabs[f"rcab_{i}"], h)
-    return x + dense(p.conv, h)
+    h = dense(p.conv, h)
+    return x + drop_path(h, _active(path_drop_prob, train, generator), generator)
 
 
-def quality_decoder(p: QualityDecoder, x: torch.Tensor) -> torch.Tensor:
+def quality_decoder(p: QualityDecoder, x: torch.Tensor, path_drop_prob: float = 0.0,
+                    train: bool = False,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """DiffNet: the residual groups in order, then the output dense."""
     for i in range(len(p.rgs)):
-        x = residual_group(p.rgs[f"rg_{i}"], x)
+        x = residual_group(p.rgs[f"rg_{i}"], x, path_drop_prob, train, generator)
     return dense(p.conv, x)
 
 
-def q_predictor(p: QPredictor, x: torch.Tensor) -> torch.Tensor:
-    """H -> H/4 -> PReLU -> 1 (dropout is identity at inference)."""
-    x = prelu(p.prelu.to(x.dtype), dense(p.fc1, x))
+def q_predictor(p: QPredictor, x: torch.Tensor, prob: float = 0.0, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Dropout -> H -> H/4 -> PReLU -> Dropout -> 1; the dropouts act in
+    training with a generator."""
+    prob = _active(prob, train, generator)
+    x = dense(p.fc1, dropout(x, prob, generator))
+    x = dropout(prelu(p.prelu.to(x.dtype), x), prob, generator)
     return dense(p.fc2, x)
 
 
@@ -196,12 +213,16 @@ def q_predictor(p: QPredictor, x: torch.Tensor) -> torch.Tensor:
 def vtamiq_forward(p: VTAMIQ, cfg: VTAMIQConfig, patches: torch.Tensor,
                    pos: torch.Tensor, scales: Optional[torch.Tensor] = None, *,
                    patch_mask: Optional[torch.Tensor] = None,
-                   compute_dtype=torch.bfloat16) -> torch.Tensor:
+                   compute_dtype=torch.bfloat16, train: bool = False,
+                   generator: Optional[torch.Generator] = None,
+                   attention_fn: Optional[Callable] = None) -> torch.Tensor:
     """Quality scores for batched (ref, dist) patch pairs.
 
     patches: (B, 2, N, P, P, 3), axis 1 = (reference, distorted); pos:
     (B, 2, N, 2) uv centers; scales: optional (B, 2, N) ints; patch_mask:
-    optional (B, 2, N) bool. Returns q: (B,) fp32."""
+    optional (B, 2, N) bool. ``train`` with a ``generator`` (on the compute
+    device) turns on DropPath and dropout; ``attention_fn``: see
+    ``models/vit.py::mhsa``. Returns q: (B,) fp32."""
     b, k, n = patches.shape[0], patches.shape[1], patches.shape[2]
     if k != 2:
         raise ValueError(f"vtamiq_forward expects 2 towers (ref, dist); got {k}.")
@@ -212,12 +233,15 @@ def vtamiq_forward(p: VTAMIQ, cfg: VTAMIQConfig, patches: torch.Tensor,
         None if scales is None else scales.reshape(b * k, n),
         tokens_only=True,
         patch_mask=None if patch_mask is None else patch_mask.reshape(b * k, n),
-        compute_dtype=compute_dtype)  # (2B, T, H) fp32
+        compute_dtype=compute_dtype, train=train, generator=generator,
+        attention_fn=attention_fn)  # (2B, T, H) fp32
 
     feats = feats.reshape(b, k, cfg.vit.num_tokens, cfg.vit.hidden_size)
     cls_diff = feats[:, 0, cfg.token_num] - feats[:, 1, cfg.token_num]  # fp32
     if cfg.diff_scale:
         cls_diff = cls_diff * p.diff_scale
     if cfg.calibrate:
-        cls_diff = quality_decoder(p.quality_decoder, cls_diff)
-    return q_predictor(p.q_predictor, cls_diff).reshape(b)
+        cls_diff = quality_decoder(p.quality_decoder, cls_diff, cfg.rg_path_drop, train,
+                                   generator)
+    return q_predictor(p.q_predictor, cls_diff, cfg.predictor_dropout, train,
+                       generator).reshape(b)
