@@ -19,14 +19,19 @@ Phases, each printing one JSON line:
                  (dq, dkv) backward kernels against their plain versions at
                  the 5000-patch shapes (16 rows, 12 heads, 5009 tokens padded
                  to 5056, head dim 64, padded keys masked), in fp32 and bf16;
-                 bf16 kernels, plain versions and PyTorch's
+                 the fused backward launched twice on the same inputs gives
+                 the same dq, dk and dv bit for bit (torch.equal) in both
+                 types; bf16 kernels, plain versions and PyTorch's
                  scaled_dot_product_attention timed with CUDA events.
 5. scorer      — VTAMIQScorer at full ViT-B/16-6L width, weights drawn from a
                  seeded torch.Generator: 8 synthetic 384x512 pairs in one batch
                  (finite scores; exactly one gather launch); 2 pairs scored in
                  fp32 on the CPU and on the card with TF32 off (|dq| <= 1e-3);
                  the encoder's tokens in bf16 on the card against fp32 on the
-                 CPU (relative error <= 2e-2); pairs/s at batch 8.
+                 CPU (relative error <= 2e-2), with PyTorch's default
+                 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+                 and, reported beside it, with the flag off; pairs/s at
+                 batch 8.
 6. server      — ScoringServer on 127.0.0.1: 4 concurrent /score, one /compare,
                  one /healthz, all answered with 200 and finite values.
 7. scorer_5000p — VTAMIQScorer(patch_count=5000), batch 8, bf16: finite
@@ -286,6 +291,17 @@ def phase_scorer(card):
     if not tokens["rel_err"] <= BF16_TOKEN_REL_TOL:
         raise AssertionError(f"card bf16 tokens vs CPU fp32: relative error "
                              f"{tokens['rel_err']} > {BF16_TOKEN_REL_TOL}")
+    # cuBLAS may add split-K partials of bf16 GEMMs in bf16 unless this flag
+    # is off; the same tokens with it off, reported beside the gated ones
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        tokens_off = bf16_tokens_vs_fp32(refs[:2], dists[:2])
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    split_k = {"allow_bf16_reduced_precision_reduction": reduced,
+               "rel_err_flag_default": tokens["rel_err"],
+               "rel_err_flag_off": tokens_off["rel_err"]}
 
     # pairs/s at batch 8 (host arrays in, scores out: end to end)
     for _ in range(2):
@@ -303,7 +319,8 @@ def phase_scorer(card):
           "tf32": False, "q_cpu_fp32": q_cpu32.tolist(), "q_card_fp32": q_gpu32.tolist(),
           "q_card_bf16": q_gpu16.tolist(), "fp32_card_vs_cpu": d32, "fp32_tol": FP32_Q_TOL,
           "bf16_q_vs_fp32": float(np.max(np.abs(q_gpu16 - q_cpu32))),
-          "bf16_tokens": tokens, "bf16_token_rel_tol": BF16_TOKEN_REL_TOL, "batch": PAIRS,
+          "bf16_tokens": tokens, "bf16_token_rel_tol": BF16_TOKEN_REL_TOL,
+          "bf16_tokens_split_k": split_k, "batch": PAIRS,
           "batch_s_median": med, "pairs_per_s": PAIRS / med, "card": card})
     return scorer, refs, dists, launches
 
@@ -385,15 +402,21 @@ S_VALID = N_LONG + 9            # + CLS + 8 register tokens
 S_PAD = -(-S_VALID // flash_kernel.BLOCK) * flash_kernel.BLOCK   # 5056
 ROWS, HEADS, HEAD_DIM = 2 * PAIRS, 12, 64
 # kernel vs plain on the same card tensors. fp32: the same math in another
-# summation order (online against dense softmax; dq partials added with
-# atomics in no fixed order). bf16: both round p and ds to bf16, the kernel
-# relative to the running maximum and the plain version to the row's, so
-# terms differ by up to one bf16 ulp (2^-8).
+# summation order (online against dense softmax). bf16: both round p and ds
+# to bf16, the forward kernel relative to the running maximum and the plain
+# version to the row's, and the kernels take exp2 of logits scaled by
+# log2(e), so terms differ by up to one bf16 ulp (2^-8).
 ATTN_TOL = {torch.float32: dict(out=1e-5, lse=1e-5, grad=1e-4),
             torch.bfloat16: dict(out=2e-2, lse=2e-2, grad=2e-2)}
 # what each kernel must compute at least: matmuls of 2*S*S*D flops per
-# (row, head), and one exp per logit
+# (row, head), and one exp per logit (the fused backward's function needs 5
+# matmuls; its kernels do 7, computing dq apart from dk and dv)
 FLASH_MATMULS = {"flash_fwd": 2, "flash_bwd_fused": 5, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
+# the CUDA source of each kernel (bf16, the main path's type)
+FLASH_SOURCE = {"flash_fwd": "vtamiq_tpu_torch/csrc/flash_attention_sm90.cu",
+                "flash_bwd_fused": "vtamiq_tpu_torch/csrc/flash_attention_sm90.cu",
+                "flash_bwd_dq": "vtamiq_tpu_torch/csrc/flash_attention.cu",
+                "flash_bwd_dkv": "vtamiq_tpu_torch/csrc/flash_attention.cu"}
 # the Pallas kernel bodies each CUDA kernel replaces
 FLASH_REPLACES = {"flash_fwd": "vtamiq_tpu/ops/attention.py:122",
                   "flash_bwd_fused": "vtamiq_tpu/ops/attention.py:300",
@@ -472,7 +495,15 @@ def phase_attention(card):
         if not ok:
             emit({"phase": "attention", "results": results})
             raise AssertionError(f"flash kernels != plain versions in {name}: {r}")
-        del out_k, lse_k, fused, dq, dk, dv, out_p, grads_p
+        # the fused backward again on the same inputs: the same bits
+        again = flash_kernel.flash_backward_fused(q, k, v, do, lse, delta, mask)
+        torch.cuda.synchronize()
+        r["fused_bitwise_repeatable"] = [torch.equal(a, b) for a, b in zip(fused, again)]
+        if not all(r["fused_bitwise_repeatable"]):
+            emit({"phase": "attention", "results": results})
+            raise AssertionError(f"fused backward not deterministic in {name}: dq, dk, dv "
+                                 f"equal {r['fused_bitwise_repeatable']}")
+        del out_k, lse_k, fused, again, dq, dk, dv, out_p, grads_p
 
     # times at the main path's type, bf16
     q, k, v, do, mask, lse, delta = attention_inputs(torch.bfloat16)
@@ -764,7 +795,7 @@ def main():
     for kname, row in attention.items():
         kernels.append({
             "name": kname, "route": "cuda",
-            "source": "vtamiq_tpu_torch/csrc/flash_attention.cu",
+            "source": FLASH_SOURCE[kname],
             "replaces": FLASH_REPLACES[kname], "launches": main_launches[kname],
             "launches_on": launches_on[kname], "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

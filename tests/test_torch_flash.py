@@ -182,3 +182,80 @@ def test_kernel_checks_run_on_the_cpu_path_too():
         flash_kernel.flash_forward(q.half(), q.half(), q.half(), torch.ones(1, 64, dtype=torch.bool))
     assert math.isfinite(float(flash_kernel.flash_forward(
         q, q, q, torch.zeros(1, 64, dtype=torch.bool))[1].max()))
+
+
+def awkward_case(case):
+    """(B, H, S, mask) where the kernels' tiles do not line up with the data:
+    one 64-token tile; S = 192 (the bf16 kernels' 128-row blocks end in a
+    half-empty one); a batch row with a single valid key beside a row whose
+    middle key tile has no valid key; B = H = 1."""
+    if case == "s64":
+        b, h, s = 2, 3, 64
+        mask = np.ones((b, s), bool)
+        mask[1, 40:] = False
+    elif case == "s192":
+        b, h, s = 2, 3, 192
+        mask = np.ones((b, s), bool)
+        mask[1, 150:] = False
+    elif case == "one_key_and_empty_tile":
+        b, h, s = 2, 3, 192
+        mask = np.zeros((b, s), bool)
+        mask[0, 5] = True
+        mask[1] = True
+        mask[1, 64:128] = False
+    else:  # "b1_h1"
+        b, h, s = 1, 1, 256
+        mask = np.ones((b, s), bool)
+        mask[0, 219:] = False
+    return b, h, s, mask
+
+
+@pytest.mark.parametrize("case", ["s64", "s192", "one_key_and_empty_tile", "b1_h1"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", BF16_TOL)])
+def test_fused_backward_matches_pallas_fused_at_awkward_shapes(dtype, tol, case):
+    """The fused backward's function (dq from its own pass, dk and dv from
+    another, as the bf16 kernels split it; on the CPU the plain version)
+    and the forward against the Pallas kernels in interpret mode with
+    64-token blocks, where the tiles do not line up with the data."""
+    b, h, s, mask = awkward_case(case)
+    rng = np.random.default_rng(7)
+    arrs = [rng.normal(size=(b, h, s, D)).astype(np.float32) for _ in range(4)]
+    if dtype == "bfloat16":
+        arrs = [np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)) for a in arrs]
+    jq, jk, jv, jdo = (to_jax(a, dtype) for a in arrs)
+    jmask = jnp.asarray(mask)
+    with pltpu.force_tpu_interpret_mode():
+        jout, jlse = jattn._flash_forward(jq, jk, jv, jmask, 64, 64)
+        want = jattn._flash_backward(jq, jk, jv, jdo, jout, jlse, jmask, 64, 64, fused=True)
+    tq, tk, tv, tdo = (to_torch(a, dtype) for a in arrs)
+    out, lse = flash_kernel.flash_forward_plain(tq, tk, tv, torch.from_numpy(mask))
+    assert rel_err(out.float(), jout.astype(jnp.float32)) <= tol
+    assert rel_err(lse, np.asarray(jlse)[..., 0]) <= tol
+    delta = np.sum(np.asarray(jdo, np.float32) * np.asarray(jout.astype(jnp.float32)), -1)
+    got = flash_kernel.flash_backward_fused(
+        tq, tk, tv, tdo, torch.from_numpy(np.asarray(jlse)[..., 0].copy()),
+        torch.from_numpy(delta), torch.from_numpy(mask))
+    for g, w in zip(got, want):
+        assert g.dtype == getattr(torch, dtype)
+        assert np.isfinite(g.float().numpy()).all()
+        assert rel_err(g.float(), w.astype(jnp.float32)) <= tol
+    # keys masked out get no gradient
+    for g in got[1:]:
+        assert float(g.float().numpy()[np.broadcast_to(~mask[:, None, :, None], g.shape)]
+                     .__abs__().max()) == 0.0
+
+
+@pytest.mark.parametrize("row_elems", [64, 65])
+def test_bf16_kernels_need_aligned_rows(row_elems):
+    """The bf16 kernels copy 16-byte row chunks: their wrappers refuse
+    token, head or batch strides that are not multiples of 8 elements (the
+    check runs before any launch, so it is testable on CPU tensors). The
+    model's (B, S, H, D) projections, seen as (B, H, S, D), pass."""
+    base = torch.zeros(2, 128, 3, row_elems, dtype=torch.bfloat16)
+    q = base[..., :64].transpose(1, 2)
+    mask = torch.ones(2, 128, dtype=torch.bool)
+    if row_elems == 64:
+        flash_kernel._check_aligned((q,), (mask,))
+    else:
+        with pytest.raises(ValueError, match="multiples of 8"):
+            flash_kernel._check_aligned((q,), (mask,))

@@ -57,16 +57,17 @@ def rel_err(got, want):
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
-def flash_inputs(dtype, b=2, h=3, s=256, d=64, seed=0):
+def flash_inputs(dtype, b=2, h=3, s=256, d=64, seed=0, mask=None):
     """(B, H, S, D) views of (B, S, H, D) tensors (the model's layout), a
-    mask with a padded tail and one fully masked key block, and the
+    mask (by default a padded tail and one fully masked key block), and the
     backward's do, lse and delta."""
     gen = torch.Generator().manual_seed(seed)
     q, k, v, do = (torch.randn(b, s, h, d, generator=gen).to(dtype).cuda().transpose(1, 2)
                    for _ in range(4))
-    mask = torch.ones(b, s, dtype=torch.bool)
-    mask[:, s - 37:] = False
-    mask[1, 64:128] = False
+    if mask is None:
+        mask = torch.ones(b, s, dtype=torch.bool)
+        mask[:, s - 37:] = False
+        mask[1, 64:128] = False
     mask = mask.cuda()
     out, lse = flash_kernel.flash_forward_plain(q, k, v, mask)
     delta = flash_kernel.delta_of(do, out)
@@ -119,3 +120,72 @@ def test_flash_kernels_refuse_what_they_do_not_take():
     h16 = q.half()
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_kernel.flash_forward(h16, h16, h16, mask)
+
+
+def _awkward_mask(case):
+    """(B, H, S, mask) of the awkward cases: S of one 64-token tile; S = 192
+    (the kernels' 128-row blocks then end in a half-empty one); a batch row
+    with a single valid key beside a row whose middle key tile has no valid
+    key; B = H = 1."""
+    if case == "s64":
+        b, h, s = 2, 3, 64
+        mask = torch.ones(b, s, dtype=torch.bool)
+        mask[1, 40:] = False
+    elif case == "s192":
+        b, h, s = 2, 3, 192
+        mask = torch.ones(b, s, dtype=torch.bool)
+        mask[1, 150:] = False
+    elif case == "one_key_and_empty_tile":
+        b, h, s = 2, 3, 192
+        mask = torch.zeros(b, s, dtype=torch.bool)
+        mask[0, 5] = True
+        mask[1] = True
+        mask[1, 64:128] = False
+    else:  # "b1_h1"
+        b, h, s = 1, 1, 256
+        mask = torch.ones(b, s, dtype=torch.bool)
+        mask[0, 219:] = False
+    return b, h, s, mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["s64", "s192", "one_key_and_empty_tile", "b1_h1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_at_awkward_shapes_on_card(dtype, case):
+    """The forward and the fused backward against their plain versions
+    where the tiles do not line up with the data (run on a machine with an
+    NVIDIA GPU; see README)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the flash kernels have no CPU mode")
+    tol = FLASH_TOL[dtype]
+    b, h, s, mask = _awkward_mask(case)
+    q, k, v, do, mask, lse, delta = flash_inputs(dtype, b=b, h=h, s=s, seed=1, mask=mask)
+    out, lse_k = flash_kernel.flash_forward(q, k, v, mask)
+    grads = flash_kernel.flash_backward_fused(q, k, v, do, lse, delta, mask)
+    torch.cuda.synchronize()
+    want_out, want_lse = flash_kernel.flash_forward_plain(q, k, v, mask)
+    want = flash_kernel.flash_backward_plain(q, k, v, do, lse, delta, mask)
+    assert rel_err(out, want_out) <= tol["out"]
+    lse_scale = max(1.0, float(want_lse.abs().max()))
+    assert float((lse_k - want_lse).abs().max()) <= tol["lse"] * lse_scale
+    for g, w in zip(grads, want):
+        assert bool(torch.isfinite(g).all())
+        assert rel_err(g, w) <= tol["grad"]
+    # keys masked out get no gradient
+    assert float(grads[1].float()[~mask[:, None, :, None].expand_as(grads[1])].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_backward_is_deterministic_on_card(dtype):
+    """Two launches of the fused backward on the same inputs give the same
+    dq, dk and dv bit for bit (no atomics; run on a machine with an NVIDIA
+    GPU; see README)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the flash kernels have no CPU mode")
+    q, k, v, do, mask, lse, delta = flash_inputs(dtype, b=2, h=4, s=1024, seed=2)
+    first = flash_kernel.flash_backward_fused(q, k, v, do, lse, delta, mask)
+    second = flash_kernel.flash_backward_fused(q, k, v, do, lse, delta, mask)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

@@ -34,22 +34,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
 _c_float_p = ctypes.POINTER(ctypes.c_float)
 _c_ll_p = ctypes.POINTER(ctypes.c_longlong)
-_FLASH_BWD_TAIL = [_c_ll_p, _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p]
+_FLASH_SHAPE = [_c_ll_p, _c_int, _c_int, _c_int, _c_int]  # strides, B, H, S, D
+_FLASH_FWD = [_c_void_p] * 6 + _FLASH_SHAPE + [_c_void_p]
+_FLASH_SPLIT_TAIL = _FLASH_SHAPE + [_c_int, _c_void_p]      # ..., is_bf16, stream
 # C signatures of the library's entry points (pointers and the stream as
 # c_void_p, so 64-bit addresses are never cut to a 32-bit int)
 _SIGNATURES = {
     "vtamiq_gather_patches": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                               _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
                               _c_int, _c_float_p, _c_float_p, _c_int, _c_void_p],
-    # q, k, v, mask, out, lse, strides, B, H, S, D, is_bf16, stream
-    "vtamiq_flash_fwd": [_c_void_p] * 6 + [_c_ll_p, _c_int, _c_int, _c_int, _c_int,
-                                           _c_int, _c_void_p],
-    # q, k, v, do, lse, delta, mask, dq_acc, dk, dv, strides, B, H, S, D, is_bf16, stream
-    "vtamiq_flash_bwd_fused": [_c_void_p] * 10 + _FLASH_BWD_TAIL,
+    # q, k, v, mask, out, lse, strides, B, H, S, D, stream
+    "vtamiq_flash_fwd_f32": _FLASH_FWD,
+    "vtamiq_flash_fwd_bf16": _FLASH_FWD,
+    # q, k, v, do, lse, delta, mask, dq, dk, dv, strides, B, H, S, D, stream
+    "vtamiq_flash_bwd_bf16": [_c_void_p] * 10 + _FLASH_SHAPE + [_c_void_p],
     # q, k, v, do, lse, delta, mask, dq, strides, B, H, S, D, is_bf16, stream
-    "vtamiq_flash_bwd_dq": [_c_void_p] * 8 + _FLASH_BWD_TAIL,
+    "vtamiq_flash_bwd_dq": [_c_void_p] * 8 + _FLASH_SPLIT_TAIL,
     # q, k, v, do, lse, delta, mask, dk, dv, strides, B, H, S, D, is_bf16, stream
-    "vtamiq_flash_bwd_dkv": [_c_void_p] * 9 + _FLASH_BWD_TAIL,
+    "vtamiq_flash_bwd_dkv": [_c_void_p] * 9 + _FLASH_SPLIT_TAIL,
 }
 
 

@@ -1,10 +1,14 @@
-// Flash attention, forward and backward, for Hopper (sm_90a).
+// Flash attention, forward and backward, for Hopper (sm_90a): the fp32
+// kernels, and the split backward in both types.
 //
 // Replaces the Pallas TPU kernels of vtamiq_tpu/ops/attention.py:
-//   flash_fwd_kernel       <- _flash_fwd_kernel       (driven by _flash_forward)
-//   flash_bwd_kernel<kFused> <- _flash_bwd_fused_kernel (_flash_backward_fused)
+//   flash_fwd_kernel       <- _flash_fwd_kernel       (_flash_forward), fp32
 //   flash_bwd_kernel<kDQ>  <- _flash_bwd_dq_kernel    (_flash_backward, fused=False)
 //   flash_bwd_kernel<kDKV> <- _flash_bwd_dkv_kernel   (_flash_backward, fused=False)
+// The fp32 fused backward (_flash_bwd_fused_kernel) runs the kDQ and the
+// kDKV kernel one after the other: 7 products a tile instead of 5, and no
+// atomics, so dq is the same on every run. bf16 inputs take the forward and
+// the fused backward of flash_attention_sm90.cu.
 //
 // What they compute, per (batch row b, head h), over S tokens of head
 // dimension D = 64, with a (B, S) key-validity mask and scale = 1/sqrt(D):
@@ -25,26 +29,16 @@
 // 2*S*S*D flops per row and head (1.26 TFLOP) and S*S exps, against
 // 0.12 GB of inputs and outputs: far right of the H100's ridge point.
 //
-// Design (the simple one; wgmma, TMA and warp specialization are later
-// work): one CTA of 4 warps per (64-row block, head, batch row), looping
-// over the other axis's 64-row blocks. Tiles sit in shared memory; warp w
-// owns rows 16w..16w+15 of every 64x64 product. bf16 products run on the
-// tensor cores through nvcuda::wmma (16x16x16, fp32 accumulate); fp32
-// products run on the CUDA cores (one FMA chain per output, in order), so
-// fp32 inputs keep fp32 precision. The online-softmax state m, l and the
-// fp32 accumulators live in shared memory. The TPU grid's sequential axis
-// (scratch carried across grid steps) becomes the loop inside the CTA.
-//
-// dq in the fused backward: a CTA owns one key block and walks every query
-// block, so a query block's dq collects contributions from all key-block
-// CTAs. The TPU kernel writes one fp32 partial per key block and sums them
-// afterwards; at a 64-token key block that would be (nk, B, H, S, D) fp32,
-// 20 GB at the 5000-patch shapes. Here each CTA adds its fp32 partial into
-// one (B, H, S, D) fp32 buffer with atomicAdd (as FlashAttention-2 does);
-// the caller zeroes it first and casts it afterwards. CTAs start their
-// query walk at their own key-block index, so CTAs running at the same
-// time add into different query blocks. The summation order varies from
-// run to run.
+// Design (the simple one; flash_attention_sm90.cu has the register-resident
+// bf16 forward and fused backward): one CTA of 4 warps per (64-row block,
+// head, batch row), looping over the other axis's 64-row blocks. Tiles sit
+// in shared memory; warp w owns rows 16w..16w+15 of every 64x64 product.
+// bf16 products run on the tensor cores through nvcuda::wmma (16x16x16,
+// fp32 accumulate); fp32 products run on the CUDA cores (one FMA chain per
+// output, in order), so fp32 inputs keep fp32 precision. The online-softmax
+// state m, l and the fp32 accumulators live in shared memory. The TPU grid's
+// sequential axis (scratch carried across grid steps) becomes the loop inside
+// the CTA.
 //
 // Tensors are (B, H, S, D) views with any batch, head and token strides and
 // a contiguous D axis, so the model's (B, S, H, D) projections pass without
@@ -303,15 +297,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 // ---------------------------------------------------------------------------
-// backward: one kernel body, three arrangements
-//   kFused: CTA per key block, walks query blocks; dk, dv in shared memory,
-//           dq partials added atomically into an fp32 buffer (5 products)
-//   kDKV:   the same walk without dq (4 products)
-//   kDQ:    CTA per query block, walks key blocks; dq in shared memory
-//           (3 products: logits, dp, ds k)
+// backward: one kernel body, two arrangements
+//   kDKV: CTA per key block, walks query blocks; dk, dv in shared memory
+//         (4 products: logits, dp, p^T do, ds^T q)
+//   kDQ:  CTA per query block, walks key blocks; dq in shared memory
+//         (3 products: logits, dp, ds k)
 // ---------------------------------------------------------------------------
 
-enum BwdMode { kFused = 0, kDQ = 1, kDKV = 2 };
+enum BwdMode { kDQ = 1, kDKV = 2 };
 
 template <typename T> constexpr size_t bwd_smem_bytes() {
   return 6 * tile_bytes<T>() + 4 * ftile_bytes() + 3 * vec_bytes();
@@ -322,7 +315,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ dout, const float* __restrict__ lse,
                  const float* __restrict__ delta, const uint8_t* __restrict__ mask,
-                 T* __restrict__ dq, float* __restrict__ dq_acc, T* __restrict__ dk,
+                 T* __restrict__ dq, T* __restrict__ dk,
                  T* __restrict__ dv, View vq, View vk, View vv, View vdo, View vdq, View vdk,
                  View vdv, int H, int S, float scale) {
   constexpr int ST = TileStride<T>::kValue;
@@ -335,8 +328,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   T* sP = cv.take<T>(kBlk * ST);    // p in the input dtype
   T* sDS = cv.take<T>(kBlk * ST);   // ds in the input dtype
   float* sS = cv.take<float>(kBlk * kSF);    // raw logits q k^T
-  float* sDP = cv.take<float>(kBlk * kSF);   // dp = do v^T, then the dq partial
-  float* sAccA = cv.take<float>(kBlk * kSF); // dk (kFused, kDKV) or dq (kDQ)
+  float* sDP = cv.take<float>(kBlk * kSF);   // dp = do v^T
+  float* sAccA = cv.take<float>(kBlk * kSF); // dk (kDKV) or dq (kDQ)
   float* sAccB = cv.take<float>(kBlk * kSF); // dv
   float* sLse = cv.take<float>(kBlk);
   float* sDelta = cv.take<float>(kBlk);
@@ -362,7 +355,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 
   for (int it = 0; it < nb; ++it) {
-    const int other = (blk + it) % nb;  // start at the own index: spreads the dq atomics
+    // start at the own index: CTAs that run at the same time read different tiles
+    const int other = (blk + it) % nb;
     const int q0 = (kMode == kDQ ? blk : other) * kBlk;
     __syncthreads();  // the previous step's tiles are no longer read
     if (kMode == kDQ) {
@@ -393,21 +387,11 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       }
     }
     __syncthreads();  // the k-row products below read every query row
-    if (kMode != kDQ) {
+    if (kMode == kDKV) {
       mm_strip<false, true>(sP, ST, sDO, ST, sAccB, true);   // dV += P^T dO
       mm_strip<false, true>(sDS, ST, sQ, ST, sAccA, true);   // dK += dS^T Q
-    }
-    if (kMode == kDQ) {
+    } else {
       mm_strip<true, true>(sDS, ST, sK, ST, sAccA, true);    // dQ += dS K
-    } else if (kMode == kFused) {
-      mm_strip<true, true>(sDS, ST, sK, ST, sDP, false);     // dQ partial = dS K
-      __syncwarp();
-      float* dst = dq_acc + b * vdq.sb + h * vdq.sh + static_cast<long long>(q0) * vdq.ss;
-      for (int i = 0; i < 16; ++i) {
-        const int r = 16 * w + i;
-        atomicAdd(dst + static_cast<long long>(r) * vdq.ss + lane, sDP[r * kSF + lane]);
-        atomicAdd(dst + static_cast<long long>(r) * vdq.ss + lane + 32, sDP[r * kSF + lane + 32]);
-      }
     }
   }
   __syncthreads();
@@ -449,7 +433,7 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* mask, vo
   return static_cast<int>(cudaGetLastError());
 }
 
-// strides: q, k, v, do, dq (or dq_acc), dk, dv; pointers of unused outputs may be null
+// strides: q, k, v, do, dq, dk, dv; pointers of unused outputs may be null
 template <typename T, int kMode>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, const void* mask, void* dq, void* dk, void* dv,
@@ -464,9 +448,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
-      kMode == kDQ ? static_cast<T*>(dq) : nullptr,
-      kMode == kFused ? static_cast<float*>(dq) : nullptr,
-      static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
       view_at(strides, 0), view_at(strides, 1), view_at(strides, 2), view_at(strides, 3),
       view_at(strides, 4), view_at(strides, 5), view_at(strides, 6), H, S, scale);
   return static_cast<int>(cudaGetLastError());
@@ -496,28 +478,15 @@ int bwd_entry(const void* q, const void* k, const void* v, const void* dout, con
 // invalid key); lse and delta are (B, H, S) contiguous fp32. S % 64 == 0 and
 // D == 64. Each returns cudaGetLastError() after its launch (0 = success).
 
-// strides: q, k, v, out (12 values)
-extern "C" int vtamiq_flash_fwd(const void* q, const void* k, const void* v, const void* mask,
-                                void* out, void* lse, const long long* strides, int B, int H,
-                                int S, int D, int is_bf16, void* stream) {
+// fp32 only. strides: q, k, v, out (12 values)
+extern "C" int vtamiq_flash_fwd_f32(const void* q, const void* k, const void* v,
+                                    const void* mask, void* out, void* lse,
+                                    const long long* strides, int B, int H, int S, int D,
+                                    void* stream) {
   if (!shapes_ok(B, H, S, D)) return static_cast<int>(cudaErrorInvalidValue);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return launch_fwd<__nv_bfloat16>(q, k, v, mask, out, lse, strides, B, H, S, scale, s);
-  }
-  return launch_fwd<float>(q, k, v, mask, out, lse, strides, B, H, S, scale, s);
-}
-
-// dq_acc: fp32 (B, H, S, D), zeroed by the caller; dq partials are added
-// into it. strides: q, k, v, do, dq_acc, dk, dv (21 values)
-extern "C" int vtamiq_flash_bwd_fused(const void* q, const void* k, const void* v,
-                                      const void* dout, const void* lse, const void* delta,
-                                      const void* mask, void* dq_acc, void* dk, void* dv,
-                                      const long long* strides, int B, int H, int S, int D,
-                                      int is_bf16, void* stream) {
-  return bwd_entry<kFused>(q, k, v, dout, lse, delta, mask, dq_acc, dk, dv, strides, B, H, S,
-                           D, is_bf16, stream);
+  return launch_fwd<float>(q, k, v, mask, out, lse, strides, B, H, S, scale,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // strides: q, k, v, do, dq, (unused), (unused) (21 values)

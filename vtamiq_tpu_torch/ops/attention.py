@@ -98,9 +98,10 @@ def flash_attention(q, k, v, mask: Optional[torch.Tensor] = None, *,
                     fused_bwd: bool = True) -> torch.Tensor:
     """Masked softmax attention over (B, S, H, D) tensors with an optional
     (B, S) key mask, through the flash kernels (their plain versions for
-    CPU tensors). ``fused_bwd`` picks the single-pass backward kernel (5
-    products per tile) over the split dq + dkv pair (7). Without gradients
-    to record, no residuals are kept."""
+    CPU tensors). ``fused_bwd`` picks the fused backward (in bf16 the
+    register-resident kernels of ``flash_attention_sm90.cu``) over the split
+    dq + dkv pair of ``flash_attention.cu``. Without gradients to record, no
+    residuals are kept."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, mask, fused_bwd)
     return _attn_padded(q, k, v, mask)

@@ -8,13 +8,20 @@ Replaces the Pallas TPU kernels of ``vtamiq_tpu/ops/attention.py``:
 - ``flash_backward_dq``      <- ``_flash_bwd_dq_kernel``
 - ``flash_backward_dkv``     <- ``_flash_bwd_dkv_kernel``
 
-The kernels are ``csrc/flash_attention.cu``. Tensors are (B, H, S, D)
-views: any batch, head and token strides, a contiguous D axis, so the
-model's (B, S, H, D) projections pass as ``.transpose(1, 2)`` views without
-a copy. ``mask`` is (B, S) bool, False = invalid key; ``lse`` and ``delta``
-are (B, H, S) fp32. The kernels take bf16 or fp32 with D = 64 and S a
-multiple of ``BLOCK`` (the caller pads, ``ops/attention.py``); the plain
-versions take any S and D.
+The kernels: in bf16, the forward and the fused backward are
+``csrc/flash_attention_sm90.cu`` (mma.sync tiles in registers, cp.async
+pipelining); the fp32 kernels and the split backward are
+``csrc/flash_attention.cu``. The fused backward computes dq in a
+query-major kernel and dk, dv in a key-major one (7 products a tile, where
+the Pallas kernel does 5), so it adds no partials with atomics and gives
+the same bits on every run; its one call counts as one launch. Tensors are
+(B, H, S, D) views: any batch, head and token strides, a contiguous D axis,
+so the model's (B, S, H, D) projections pass as ``.transpose(1, 2)`` views
+without a copy; the bf16 kernels also need strides that are multiples of 8
+and 16-byte aligned data. ``mask`` is (B, S) bool, False = invalid key;
+``lse`` and ``delta`` are (B, H, S) fp32. The kernels take bf16 or fp32
+with D = 64 and S a multiple of ``BLOCK`` (the caller pads,
+``ops/attention.py``); the plain versions take any S and D.
 
 Each wrapper runs its kernel for tensors on the card and its plain version
 for tensors on the CPU; there is no other fallback. ``launches`` counts each
@@ -86,6 +93,20 @@ def _check_kernel(b, h, s, d, tensors, vectors):
             raise ValueError("mask, lse and delta must be contiguous")
 
 
+def _check_aligned(tensors, vectors):
+    """``flash_attention_sm90.cu``'s bf16 kernels copy 16-byte row chunks:
+    every (B, H, S, D) tensor needs 16-byte aligned data and batch, head and
+    token strides that are multiples of 8 elements; the (B, S) and
+    (B, H, S) vectors 16-byte aligned data."""
+    for t in tensors:
+        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+            raise ValueError(f"the bf16 flash kernels need 16-byte aligned data and strides "
+                             f"that are multiples of 8, got strides {t.stride()}")
+    for t in vectors:
+        if t.data_ptr() % 16:
+            raise ValueError("the bf16 flash kernels need 16-byte aligned mask, lse and delta")
+
+
 def _strides(*tensors, count=None):
     """(batch, head, token) element strides of each tensor, padded with
     zeros to ``count`` tensors, as the C ``long long`` array."""
@@ -130,7 +151,10 @@ def _masked_logits(qf, kf, mask, scale):
 def flash_forward_plain(q, k, v, mask) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's function, dense: (out (B, H, S, D) in q.dtype,
     lse (B, H, S) fp32). p is rounded to v's dtype before the p v product,
-    as in the kernel; l is clamped at 1e-30."""
+    as in the kernel; l is clamped at 1e-30. The bf16 kernels take the same
+    exponentials as exp2 of logits scaled by log2(e), which differs from
+    exp here by fp32 rounding only: the rounding points to bf16 are the
+    same."""
     b, h, s, d = _check(q, k, v, mask)
     scale = 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
@@ -178,54 +202,79 @@ def flash_forward(q, k, v, mask) -> Tuple[torch.Tensor, torch.Tensor]:
         return flash_forward_plain(q, k, v, mask)
     b, h, s, d = _check(q, k, v, mask)
     _check_kernel(b, h, s, d, (q, k, v), (mask,))
+    out = torch.empty_like(q)
+    if q.dtype == torch.bfloat16:
+        _check_aligned((q, k, v, out), (mask,))
     from .._build import load_library
     lib = load_library()
-    out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    fn = lib.vtamiq_flash_fwd_bf16 if q.dtype == torch.bfloat16 else lib.vtamiq_flash_fwd_f32
     with torch.cuda.device(q.device):
-        _launch("flash_fwd", lib.vtamiq_flash_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                mask.data_ptr(), out.data_ptr(), lse.data_ptr(), _strides(q, k, v, out),
-                b, h, s, d, int(q.dtype == torch.bfloat16),
+        _launch("flash_fwd", fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), _strides(q, k, v, out), b, h, s, d,
                 torch.cuda.current_stream().cuda_stream)
     return out, lse
 
 
-def _bwd_args(q, k, v, do, lse, delta, mask):
+def _bwd_lib(q, k, v, do, lse, delta, mask):
+    """The kernels' library, after the backward kernels' argument checks."""
     b, h, s, d = _check(q, k, v, mask, do, lse, delta)
     _check_kernel(b, h, s, d, (q, k, v, do), (mask, lse, delta))
     from .._build import load_library
-    return (b, h, s, d), load_library()
+    return load_library()
+
+
+def _call_dq(lib, q, k, v, do, lse, delta, mask, dq):
+    """The split backward's dq kernel of ``flash_attention.cu``; its C
+    return code."""
+    b, h, s, d = q.shape
+    return lib.vtamiq_flash_bwd_dq(
+        *(t.data_ptr() for t in (q, k, v, do, lse, delta, mask, dq)),
+        _strides(q, k, v, do, dq, count=7), b, h, s, d, int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+
+
+def _call_dkv(lib, q, k, v, do, lse, delta, mask, dk, dv):
+    """The split backward's dk/dv kernel of ``flash_attention.cu``; its C
+    return code. The dq slot of its stride array is unused."""
+    b, h, s, d = q.shape
+    return lib.vtamiq_flash_bwd_dkv(
+        *(t.data_ptr() for t in (q, k, v, do, lse, delta, mask, dk, dv)),
+        _strides(q, k, v, do, q, dk, dv), b, h, s, d, int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
 
 
 def flash_backward_fused(q, k, v, do, lse, delta, mask):
-    """(dq, dk, dv) from the single-pass backward kernel (dq summed in fp32
-    with atomics, then cast); arguments as ``flash_backward_plain``."""
+    """(dq, dk, dv) from the fused backward: in bf16 the dq and the dk/dv
+    kernel of ``flash_attention_sm90.cu``, in fp32 the split pair's kernels
+    of ``flash_attention.cu``, one call and one launch count either way;
+    the same bits on every run. Arguments as ``flash_backward_plain``."""
     if not _on_card(q, "flash_backward_fused"):
         return flash_backward_plain(q, k, v, do, lse, delta, mask)
-    (b, h, s, d), lib = _bwd_args(q, k, v, do, lse, delta, mask)
-    dq_acc = torch.zeros_like(q, dtype=torch.float32)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _bwd_lib(q, k, v, do, lse, delta, mask)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        _launch("flash_bwd_fused", lib.vtamiq_flash_bwd_fused, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                mask.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                _strides(q, k, v, do, dq_acc, dk, dv), b, h, s, d,
-                int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
-    return dq_acc.to(q.dtype), dk, dv
+        if q.dtype == torch.bfloat16:
+            _check_aligned((q, k, v, do, dq, dk, dv), (mask, lse, delta))
+            _launch("flash_bwd_fused", lib.vtamiq_flash_bwd_bf16,
+                    *(t.data_ptr() for t in (q, k, v, do, lse, delta, mask, dq, dk, dv)),
+                    _strides(q, k, v, do, dq, dk, dv), *q.shape,
+                    torch.cuda.current_stream().cuda_stream)
+        else:
+            args = (lib, q, k, v, do, lse, delta, mask)
+            _launch("flash_bwd_fused",
+                    lambda: _call_dq(*args, dq) or _call_dkv(*args, dk, dv))
+    return dq, dk, dv
 
 
 def flash_backward_dq(q, k, v, do, lse, delta, mask) -> torch.Tensor:
     """dq from the split backward's dq kernel."""
     if not _on_card(q, "flash_backward_dq"):
         return flash_backward_plain(q, k, v, do, lse, delta, mask)[0]
-    (b, h, s, d), lib = _bwd_args(q, k, v, do, lse, delta, mask)
+    lib = _bwd_lib(q, k, v, do, lse, delta, mask)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        _launch("flash_bwd_dq", lib.vtamiq_flash_bwd_dq, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                mask.data_ptr(), dq.data_ptr(), _strides(q, k, v, do, dq, count=7),
-                b, h, s, d, int(q.dtype == torch.bfloat16),
-                torch.cuda.current_stream().cuda_stream)
+        _launch("flash_bwd_dq", _call_dq, lib, q, k, v, do, lse, delta, mask, dq)
     return dq
 
 
@@ -233,15 +282,10 @@ def flash_backward_dkv(q, k, v, do, lse, delta, mask) -> Tuple[torch.Tensor, tor
     """(dk, dv) from the split backward's dkv kernel."""
     if not _on_card(q, "flash_backward_dkv"):
         return flash_backward_plain(q, k, v, do, lse, delta, mask)[1:]
-    (b, h, s, d), lib = _bwd_args(q, k, v, do, lse, delta, mask)
+    lib = _bwd_lib(q, k, v, do, lse, delta, mask)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    # the dq slot of the stride array is unused by this kernel
-    strides = _strides(q, k, v, do, q, dk, dv)
     with torch.cuda.device(q.device):
-        _launch("flash_bwd_dkv", lib.vtamiq_flash_bwd_dkv, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                mask.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides, b, h, s, d,
-                int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+        _launch("flash_bwd_dkv", _call_dkv, lib, q, k, v, do, lse, delta, mask, dk, dv)
     return dk, dv
 
 
