@@ -18,11 +18,14 @@ Phases, each printing one JSON line:
 4. attention   — the flash-attention forward, fused backward and split
                  (dq, dkv) backward kernels against their plain versions at
                  the 5000-patch shapes (16 rows, 12 heads, 5009 tokens padded
-                 to 5056, head dim 64, padded keys masked), in fp32 and bf16;
-                 the fused backward launched twice on the same inputs gives
-                 the same dq, dk and dv bit for bit (torch.equal) in both
-                 types; bf16 kernels, plain versions and PyTorch's
-                 scaled_dot_product_attention timed with CUDA events.
+                 to 5056, head dim 64, padded keys masked), in fp32 (TF32
+                 off) and bf16; the fused backward launched twice on the same
+                 inputs gives the same dq, dk and dv bit for bit
+                 (torch.equal), and the split backward gives the fused one's
+                 bit for bit, in both types; the kernels, plain versions and
+                 PyTorch's scaled_dot_product_attention timed with CUDA
+                 events in both types (fp32 SDPA held to its memory-efficient
+                 backend, its error against the plain version reported).
 5. scorer      — VTAMIQScorer at full ViT-B/16-6L width, weights drawn from a
                  seeded torch.Generator: 8 synthetic 384x512 pairs in one batch
                  (finite scores; exactly one gather launch); 2 pairs scored in
@@ -41,14 +44,16 @@ Phases, each printing one JSON line:
                  same patches (|dq| <= 1e-3).
 8. train_5000p — make_train_step at batch 8, bf16, AdamW(5e-5, wd 0.01),
                  loss weights (1, 1, 1): 1 warm-up and 3 timed steps (5 flash
-                 forward and 5 fused backward launches each), one step with
-                 the split backward (5 dq and 5 dkv launches); in fp32 at
+                 forward and 5 fused backward launches each), one timed step
+                 with the split backward (5 dq and 5 dkv launches); in fp32 at
                  batch 2 the fused and split backward's gradient norms agree
                  (1e-4 relative), a step through the flash kernels against a
                  step through plain attention (loss 1e-5), and the encoder's
                  gradient through each (every tensor 1e-3 relative).
 9. kernels     — one JSON object per kernel: time, bound, plain time,
-                 library time, launches on the main path.
+                 library time in bf16 and in fp32 (the fp32 bound at the
+                 3xTF32 rate, beside it at the FFMA rate), launches on the
+                 main path.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, so the
 exit code is not 0; with no CUDA device the script exits 1 before any result.
@@ -68,6 +73,7 @@ import time  # noqa: E402
 import urllib.request  # noqa: E402
 from concurrent.futures import ThreadPoolExecutor  # noqa: E402
 
+import contextlib  # noqa: E402
 import copy  # noqa: E402
 
 import numpy as np  # noqa: E402
@@ -92,6 +98,9 @@ PAIRS = 8
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+# fp32-accurate products on the tensor cores: 3 TF32 products (TF32 dense
+# is half the bf16 rate) per fp32 product
+TF32X3_FLOPS_PER_S = BF16_FLOPS_PER_S / 2 / 3
 # special-function (exp) rate: 132 SMs x 16 results per clock x 1.83 GHz boost
 SFU_PER_S = 132 * 16 * 1.83e9
 FP32_Q_TOL = 1e-3             # card fp32 vs CPU fp32: summation order only
@@ -412,11 +421,15 @@ ATTN_TOL = {torch.float32: dict(out=1e-5, lse=1e-5, grad=1e-4),
 # (row, head), and one exp per logit (the fused backward's function needs 5
 # matmuls; its kernels do 7, computing dq apart from dk and dv)
 FLASH_MATMULS = {"flash_fwd": 2, "flash_bwd_fused": 5, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
-# the CUDA source of each kernel (bf16, the main path's type)
+# the CUDA source of each kernel in bf16 (the main path's type) and in fp32
 FLASH_SOURCE = {"flash_fwd": "vtamiq_tpu_torch/csrc/flash_attention_sm90.cu",
                 "flash_bwd_fused": "vtamiq_tpu_torch/csrc/flash_attention_sm90.cu",
-                "flash_bwd_dq": "vtamiq_tpu_torch/csrc/flash_attention.cu",
-                "flash_bwd_dkv": "vtamiq_tpu_torch/csrc/flash_attention.cu"}
+                "flash_bwd_dq": "vtamiq_tpu_torch/csrc/flash_attention_sm90.cu",
+                "flash_bwd_dkv": "vtamiq_tpu_torch/csrc/flash_attention_sm90.cu"}
+FLASH_SOURCE_FP32 = {"flash_fwd": "vtamiq_tpu_torch/csrc/flash_attention.cu",
+                     "flash_bwd_fused": "vtamiq_tpu_torch/csrc/flash_attention_tf32x3.cu",
+                     "flash_bwd_dq": "vtamiq_tpu_torch/csrc/flash_attention_tf32x3.cu",
+                     "flash_bwd_dkv": "vtamiq_tpu_torch/csrc/flash_attention_tf32x3.cu"}
 # the Pallas kernel bodies each CUDA kernel replaces
 FLASH_REPLACES = {"flash_fwd": "vtamiq_tpu/ops/attention.py:122",
                   "flash_bwd_fused": "vtamiq_tpu/ops/attention.py:300",
@@ -445,11 +458,12 @@ def attention_inputs(dtype):
     return q, k, v, do, mask, lse, flash_kernel.delta_of(do, out)
 
 
-def flash_bound_ms(name, q, mask):
+def flash_bound_ms(name, q, mask, flops_per_s=BF16_FLOPS_PER_S):
     """Least time for a flash kernel at these inputs: its matmuls over the
-    valid queries and keys at the bf16 tensor-core rate, or its exps at the
-    special-function rate, or its bytes (each input read once, each output
-    written once) at the memory rate, whichever is largest."""
+    valid queries and keys at ``flops_per_s`` (the bf16 tensor-core rate for
+    bf16; the 3xTF32 rate for fp32), or its exps at the special-function
+    rate, or its bytes (each input read once, each output written once) at
+    the memory rate, whichever is largest."""
     n = int(mask[0].sum())
     pairs = ROWS * HEADS * n * n
     flops = FLASH_MATMULS[name] * 2 * pairs * HEAD_DIM
@@ -459,54 +473,30 @@ def flash_bound_ms(name, q, mask):
               "flash_bwd_fused": 7 * tile + 2 * vec,
               "flash_bwd_dq": 5 * tile + 2 * vec,
               "flash_bwd_dkv": 6 * tile + 2 * vec}[name] + mask.numel()
-    times = {"operations": max(flops / BF16_FLOPS_PER_S, pairs / SFU_PER_S) * 1e3,
+    times = {"operations": max(flops / flops_per_s, pairs / SFU_PER_S) * 1e3,
              "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
     by = max(times, key=times.get)
     return times[by], by, {"flops": flops, "exps": pairs, "bytes": nbytes}
 
 
-def phase_attention(card):
-    results = {}
-    errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        tol = ATTN_TOL[dtype]
-        q, k, v, do, mask, lse, delta = attention_inputs(dtype)
-        out_k, lse_k = flash_kernel.flash_forward(q, k, v, mask)
-        fused = flash_kernel.flash_backward_fused(q, k, v, do, lse, delta, mask)
-        dq = flash_kernel.flash_backward_dq(q, k, v, do, lse, delta, mask)
-        dk, dv = flash_kernel.flash_backward_dkv(q, k, v, do, lse, delta, mask)
-        torch.cuda.synchronize()
-        out_p, _ = flash_kernel.flash_forward_plain(q, k, v, mask)
-        grads_p = flash_kernel.flash_backward_plain(q, k, v, do, lse, delta, mask)
-        r = {"out_rel": rel_err(out_k, out_p),
-             "lse_abs": float((lse_k - lse).abs().max()),
-             "fused_rel": [rel_err(a, b) for a, b in zip(fused, grads_p)],
-             "split_rel": [rel_err(a, b) for a, b in zip((dq, dk, dv), grads_p)]}
-        name = str(dtype).replace("torch.", "")
-        results[name] = r
-        errs[name] = {"flash_fwd": float((out_k.float() - out_p.float()).abs().max()),
-                      "flash_bwd_fused": max(float((a.float() - b.float()).abs().max())
-                                             for a, b in zip(fused, grads_p)),
-                      "flash_bwd_dq": float((dq.float() - grads_p[0].float()).abs().max()),
-                      "flash_bwd_dkv": max(float((a.float() - b.float()).abs().max())
-                                           for a, b in zip((dk, dv), grads_p[1:]))}
-        ok = (r["out_rel"] <= tol["out"] and r["lse_abs"] <= tol["lse"] * max(
-            1.0, float(lse.abs().max())) and max(r["fused_rel"] + r["split_rel"]) <= tol["grad"])
-        if not ok:
-            emit({"phase": "attention", "results": results})
-            raise AssertionError(f"flash kernels != plain versions in {name}: {r}")
-        # the fused backward again on the same inputs: the same bits
-        again = flash_kernel.flash_backward_fused(q, k, v, do, lse, delta, mask)
-        torch.cuda.synchronize()
-        r["fused_bitwise_repeatable"] = [torch.equal(a, b) for a, b in zip(fused, again)]
-        if not all(r["fused_bitwise_repeatable"]):
-            emit({"phase": "attention", "results": results})
-            raise AssertionError(f"fused backward not deterministic in {name}: dq, dk, dv "
-                                 f"equal {r['fused_bitwise_repeatable']}")
-        del out_k, lse_k, fused, again, dq, dk, dv, out_p, grads_p
+def _max_abs(got, want):
+    return max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
 
-    # times at the main path's type, bf16
-    q, k, v, do, mask, lse, delta = attention_inputs(torch.bfloat16)
+
+def _sdpa_backend(dtype):
+    """fp32 SDPA held to its memory-efficient kernel (the math fallback
+    would hold the (16, 12, 5056, 5056) fp32 probabilities, 19.6 GB); bf16
+    as PyTorch chooses."""
+    if dtype != torch.float32:
+        return contextlib.nullcontext()
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    return sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION])
+
+
+def time_attention(dtype):
+    """Kernel, plain and library times at the main shapes in ``dtype``; for
+    fp32 also SDPA's backend and its error against the plain version."""
+    q, k, v, do, mask, lse, delta = attention_inputs(dtype)
     bwd_args = (q, k, v, do, lse, delta, mask)
     ms = {"flash_fwd": median_ms(lambda: flash_kernel.flash_forward(q, k, v, mask), 2, 5),
           "flash_bwd_fused": median_ms(lambda: flash_kernel.flash_backward_fused(*bwd_args), 2, 5),
@@ -520,28 +510,93 @@ def phase_attention(card):
     # key mask; forward alone (no grad), and its backward alone (one
     # autograd call over a saved forward; it computes dq, dk and dv)
     attn_mask = mask[:, None, None, :]
-    with torch.no_grad():
+    with torch.no_grad(), _sdpa_backend(dtype):
         sdpa_fwd = median_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask),
                              2, 5)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=attn_mask)
+    with _sdpa_backend(dtype):
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=attn_mask)
     sdpa_bwd = median_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True),
                          2, 5)
-    del out, qg, kg, vg
     library = {"flash_fwd": sdpa_fwd, "flash_bwd_fused": sdpa_bwd,
                "flash_bwd_dq": sdpa_bwd, "flash_bwd_dkv": sdpa_bwd}
+    sdpa = {"backward_node": out.grad_fn.name()}
+    if dtype == torch.float32:  # is the library time an fp32-accurate one?
+        grads = torch.autograd.grad(out, (qg, kg, vg), do)
+        out_p, _ = flash_kernel.flash_forward_plain(q, k, v, mask)
+        grads_p = flash_kernel.flash_backward_plain(*bwd_args)
+        sdpa.update({"out_rel_vs_plain": rel_err(out.detach(), out_p),
+                     "grad_rel_vs_plain": [rel_err(a, b) for a, b in zip(grads, grads_p)]})
+        del grads, out_p, grads_p
+    del out, qg, kg, vg
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else TF32X3_FLOPS_PER_S
     table = {}
     for name in FLASH_MATMULS:
-        bound, by, work = flash_bound_ms(name, q, mask)
+        bound, by, work = flash_bound_ms(name, q, mask, rate)
         table[name] = {"ms": ms[name], "plain_ms": plain[name], "library_ms": library[name],
-                       "bound_ms": bound, "bound_by": by, "work": work,
-                       "max_abs_err": errs["bfloat16"][name]}
+                       "bound_ms": bound, "bound_by": by, "work": work}
+        if dtype == torch.float32:  # the same matmuls at the FFMA rate
+            table[name]["bound_ms_ffma"] = flash_bound_ms(name, q, mask, FP32_FLOPS_PER_S)[0]
+    return table, sdpa
+
+
+def phase_attention(card):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results, tables, sdpa = {}, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = ATTN_TOL[dtype]
+        name = str(dtype).replace("torch.", "")
+        q, k, v, do, mask, lse, delta = attention_inputs(dtype)
+        out_k, lse_k = flash_kernel.flash_forward(q, k, v, mask)
+        fused = flash_kernel.flash_backward_fused(q, k, v, do, lse, delta, mask)
+        dq = flash_kernel.flash_backward_dq(q, k, v, do, lse, delta, mask)
+        dk, dv = flash_kernel.flash_backward_dkv(q, k, v, do, lse, delta, mask)
+        split = (dq, dk, dv)
+        torch.cuda.synchronize()
+        out_p, _ = flash_kernel.flash_forward_plain(q, k, v, mask)
+        grads_p = flash_kernel.flash_backward_plain(q, k, v, do, lse, delta, mask)
+        r = {"out_rel": rel_err(out_k, out_p),
+             "lse_abs": float((lse_k - lse).abs().max()),
+             "fused_rel": [rel_err(a, b) for a, b in zip(fused, grads_p)],
+             "split_rel": [rel_err(a, b) for a, b in zip(split, grads_p)]}
+        results[name] = r
+        errs = {"flash_fwd": _max_abs((out_k,), (out_p,)),
+                "flash_bwd_fused": _max_abs(fused, grads_p),
+                "flash_bwd_dq": _max_abs(split[:1], grads_p[:1]),
+                "flash_bwd_dkv": _max_abs(split[1:], grads_p[1:])}
+        ok = (r["out_rel"] <= tol["out"] and r["lse_abs"] <= tol["lse"] * max(
+            1.0, float(lse.abs().max())) and max(r["fused_rel"] + r["split_rel"]) <= tol["grad"])
+        if not ok:
+            emit({"phase": "attention", "results": results})
+            raise AssertionError(f"flash kernels != plain versions in {name}: {r}")
+        # the fused backward again on the same inputs: the same bits
+        again = flash_kernel.flash_backward_fused(q, k, v, do, lse, delta, mask)
+        torch.cuda.synchronize()
+        r["fused_bitwise_repeatable"] = [torch.equal(a, b) for a, b in zip(fused, again)]
+        if not all(r["fused_bitwise_repeatable"]):
+            emit({"phase": "attention", "results": results})
+            raise AssertionError(f"fused backward not deterministic in {name}: dq, dk, dv "
+                                 f"equal {r['fused_bitwise_repeatable']}")
+        # the split backward runs the fused backward's two kernels: the same bits
+        r["split_bitwise_equals_fused"] = [torch.equal(a, b) for a, b in zip(split, fused)]
+        if not all(r["split_bitwise_equals_fused"]):
+            emit({"phase": "attention", "results": results})
+            raise AssertionError(f"split backward != fused backward in {name}: dq, dk, dv "
+                                 f"equal {r['split_bitwise_equals_fused']}")
+        del q, k, v, do, mask, lse, delta, out_k, lse_k, fused, again, split, dq, dk, dv
+        del out_p, grads_p
+        tables[name], sdpa[name] = time_attention(dtype)
+        for kname, err in errs.items():
+            tables[name][kname]["max_abs_err"] = err
     emit({"phase": "attention", "shape": f"q, k, v ({ROWS}, {HEADS}, {S_PAD}, {HEAD_DIM}) "
           f"views of (B, S, H, D), {S_VALID} valid keys", "results": results,
           "tolerances": {str(d).replace("torch.", ""): t for d, t in ATTN_TOL.items()},
-          "bf16": table, "library_call": "torch.nn.functional.scaled_dot_product_attention, "
-          "bool mask; backward: torch.autograd.grad over a saved forward", "card": card})
-    return table
+          "tf32": False, "float32": tables["float32"], "bfloat16": tables["bfloat16"],
+          "library_call": "torch.nn.functional.scaled_dot_product_attention, bool mask "
+          "(fp32: memory-efficient backend only); backward: torch.autograd.grad over a "
+          "saved forward", "sdpa": sdpa, "card": card})
+    return tables
 
 
 # ---------------------------------------------------------------------------
@@ -621,7 +676,7 @@ def phase_scorer_5000p(card, refs, dists):
 #    projection's bias gets no gradient in exact arithmetic (softmax ignores
 #    a shift shared by a query's logits), so its gradient is rounding noise
 #    in both runs: held to 1e-6 of the whole gradient's norm instead.
-SPLIT_NORM_TOL = 1e-4    # fused vs split backward: atomics' order only
+SPLIT_NORM_TOL = 1e-4    # fused vs split backward: the same kernels, equal in exact runs
 PLAIN_LOSS_TOL = 1e-5    # flash vs plain attention, fp32
 ENCODER_GRAD_TOL = 1e-3  # flash vs plain, each encoder tensor, relative
 KEY_BIAS_TOL = 1e-6      # key biases, of the whole encoder gradient's norm
@@ -677,13 +732,16 @@ def phase_train_5000p(card, refs, dists):
     split = make_train_step(cfg, PatchSampler(), ecfg, adamw,
                             attention_fn=make_attention_fn(fused_bwd=False))
     flash_kernel.reset_launches()
+    t0 = time.perf_counter()
     metrics, _ = split(model, state, mask, raw, qs, PAIRS, lw, sample_gen, model_gen)
+    split_loss = float(metrics["loss"])  # synchronizes
+    split_s = time.perf_counter() - t0
     split_launches = _flash_counts()
     split_expected = {"flash_fwd": layers, "flash_bwd_fused": 0, "flash_bwd_dq": layers,
                       "flash_bwd_dkv": layers}
-    if split_launches != split_expected or not np.isfinite(float(metrics["loss"])):
+    if split_launches != split_expected or not np.isfinite(split_loss):
         raise AssertionError(f"split train step launches {split_launches}, expected "
-                             f"{split_expected}; loss {float(metrics['loss'])}")
+                             f"{split_expected}; loss {split_loss}")
     del model, state, step, split
 
     # fp32, batch 2, TF32 off: fused vs split backward, flash vs plain attention
@@ -694,6 +752,7 @@ def phase_train_5000p(card, refs, dists):
           f"{lw}", "steps": per_step, "step_s": times, "step_s_median": float(np.median(times)),
           "pairs_per_s": PAIRS / float(np.median(times)), "launches": launches,
           "expected_launches": expected, "split_launches": split_launches,
+          "split_step_s": split_s,
           "peak_memory_gb": peak_gb, **checks, "card": card})
     if not checks["fused_vs_split_grad_norm_rel"] <= SPLIT_NORM_TOL:
         raise AssertionError(f"fused vs split backward grad norm: {checks}")
@@ -792,14 +851,19 @@ def main():
         "ms": k["kernel_ms"], "kernel_ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
         "card": smi}]
-    for kname, row in attention.items():
+    for kname, row in attention["bfloat16"].items():
+        row32 = attention["float32"][kname]
         kernels.append({
             "name": kname, "route": "cuda",
-            "source": FLASH_SOURCE[kname],
+            "source": FLASH_SOURCE[kname], "source_fp32": FLASH_SOURCE_FP32[kname],
             "replaces": FLASH_REPLACES[kname], "launches": main_launches[kname],
             "launches_on": launches_on[kname], "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"], "card": smi})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "max_abs_err_fp32": row32["max_abs_err"], "ms_fp32": row32["ms"],
+            "plain_ms_fp32": row32["plain_ms"], "bound_ms_fp32": row32["bound_ms"],
+            "bound_by_fp32": row32["bound_by"], "bound_ms_fp32_ffma": row32["bound_ms_ffma"],
+            "library_ms_fp32": row32["library_ms"], "card": smi})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -210,13 +210,20 @@ def awkward_case(case):
     return b, h, s, mask
 
 
-@pytest.mark.parametrize("case", ["s64", "s192", "one_key_and_empty_tile", "b1_h1"])
+AWKWARD = ["s64", "s192", "one_key_and_empty_tile", "b1_h1"]
+
+
+@pytest.mark.parametrize("case,pallas_fused",
+                         [pytest.param(c, True, id=c) for c in AWKWARD]
+                         + [pytest.param(c, False, id=f"{c}-pallas_split") for c in AWKWARD])
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", BF16_TOL)])
-def test_fused_backward_matches_pallas_fused_at_awkward_shapes(dtype, tol, case):
+def test_fused_backward_matches_pallas_fused_at_awkward_shapes(dtype, tol, case, pallas_fused):
     """The fused backward's function (dq from its own pass, dk and dv from
-    another, as the bf16 kernels split it; on the CPU the plain version)
-    and the forward against the Pallas kernels in interpret mode with
-    64-token blocks, where the tiles do not line up with the data."""
+    another, as the kernels split it; on the CPU the plain version) and the
+    forward against the Pallas kernels in interpret mode with 64-token
+    blocks, where the tiles do not line up with the data: JAX's fused
+    backward, and its split dq and dk/dv kernels, which the port's split
+    backward replaces with the same pair of kernels."""
     b, h, s, mask = awkward_case(case)
     rng = np.random.default_rng(7)
     arrs = [rng.normal(size=(b, h, s, D)).astype(np.float32) for _ in range(4)]
@@ -226,7 +233,8 @@ def test_fused_backward_matches_pallas_fused_at_awkward_shapes(dtype, tol, case)
     jmask = jnp.asarray(mask)
     with pltpu.force_tpu_interpret_mode():
         jout, jlse = jattn._flash_forward(jq, jk, jv, jmask, 64, 64)
-        want = jattn._flash_backward(jq, jk, jv, jdo, jout, jlse, jmask, 64, 64, fused=True)
+        want = jattn._flash_backward(jq, jk, jv, jdo, jout, jlse, jmask, 64, 64,
+                                     fused=pallas_fused)
     tq, tk, tv, tdo = (to_torch(a, dtype) for a in arrs)
     out, lse = flash_kernel.flash_forward_plain(tq, tk, tv, torch.from_numpy(mask))
     assert rel_err(out.float(), jout.astype(jnp.float32)) <= tol

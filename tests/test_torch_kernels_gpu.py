@@ -45,10 +45,10 @@ def test_kernel_matches_plain_on_card():
 from vtamiq_tpu_torch.ops import flash_kernel  # noqa: E402
 
 # fp32: the kernels and the plain versions differ only in summation order
-# (online softmax against a dense one; the fused backward adds dq partials
-# with atomics in no fixed order). bf16: both round p and ds to bf16 but at
-# different points (the kernel's p is relative to the running maximum), so
-# they differ by about one bf16 ulp (2^-8) per product term.
+# (online softmax against a dense one; the backward's products in 3xTF32,
+# about 2^-22 of each term from fp32). bf16: both round p and ds to bf16
+# but at different points (the kernel's p is relative to the running
+# maximum), so they differ by about one bf16 ulp (2^-8) per product term.
 FLASH_TOL = {torch.float32: dict(out=1e-5, lse=1e-5, grad=1e-4),
              torch.bfloat16: dict(out=2e-2, lse=2e-2, grad=2e-2)}
 
@@ -152,40 +152,68 @@ def _awkward_mask(case):
 @pytest.mark.parametrize("case", ["s64", "s192", "one_key_and_empty_tile", "b1_h1"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_at_awkward_shapes_on_card(dtype, case):
-    """The forward and the fused backward against their plain versions
-    where the tiles do not line up with the data (run on a machine with an
-    NVIDIA GPU; see README)."""
+    """The forward, the fused backward and the split backward's dq and
+    dk/dv kernels against their plain versions where the tiles do not line
+    up with the data (run on a machine with an NVIDIA GPU; see README)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the flash kernels have no CPU mode")
     tol = FLASH_TOL[dtype]
     b, h, s, mask = _awkward_mask(case)
     q, k, v, do, mask, lse, delta = flash_inputs(dtype, b=b, h=h, s=s, seed=1, mask=mask)
     out, lse_k = flash_kernel.flash_forward(q, k, v, mask)
-    grads = flash_kernel.flash_backward_fused(q, k, v, do, lse, delta, mask)
+    fused = flash_kernel.flash_backward_fused(q, k, v, do, lse, delta, mask)
+    split = (flash_kernel.flash_backward_dq(q, k, v, do, lse, delta, mask),
+             *flash_kernel.flash_backward_dkv(q, k, v, do, lse, delta, mask))
     torch.cuda.synchronize()
     want_out, want_lse = flash_kernel.flash_forward_plain(q, k, v, mask)
     want = flash_kernel.flash_backward_plain(q, k, v, do, lse, delta, mask)
     assert rel_err(out, want_out) <= tol["out"]
     lse_scale = max(1.0, float(want_lse.abs().max()))
     assert float((lse_k - want_lse).abs().max()) <= tol["lse"] * lse_scale
-    for g, w in zip(grads, want):
-        assert bool(torch.isfinite(g).all())
-        assert rel_err(g, w) <= tol["grad"]
-    # keys masked out get no gradient
-    assert float(grads[1].float()[~mask[:, None, :, None].expand_as(grads[1])].abs().max()) == 0.0
+    invalid = ~mask[:, None, :, None].expand_as(fused[1])
+    for grads in (fused, split):
+        for g, w in zip(grads, want):
+            assert bool(torch.isfinite(g).all())
+            assert rel_err(g, w) <= tol["grad"]
+        # keys masked out get no gradient
+        for g in grads[1:]:
+            assert float(g.float()[invalid].abs().max()) == 0.0
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_backward_is_deterministic_on_card(dtype):
-    """Two launches of the fused backward on the same inputs give the same
-    dq, dk and dv bit for bit (no atomics; run on a machine with an NVIDIA
-    GPU; see README)."""
+    """Two launches of the fused backward, and of the split backward's dq
+    and dk/dv kernels, on the same inputs give the same dq, dk and dv bit
+    for bit (no atomics; run on a machine with an NVIDIA GPU; see
+    README)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the flash kernels have no CPU mode")
     q, k, v, do, mask, lse, delta = flash_inputs(dtype, b=2, h=4, s=1024, seed=2)
-    first = flash_kernel.flash_backward_fused(q, k, v, do, lse, delta, mask)
-    second = flash_kernel.flash_backward_fused(q, k, v, do, lse, delta, mask)
+    args = (q, k, v, do, lse, delta, mask)
+    first = flash_kernel.flash_backward_fused(*args)
+    second = flash_kernel.flash_backward_fused(*args)
+    split = [(flash_kernel.flash_backward_dq(*args), *flash_kernel.flash_backward_dkv(*args))
+             for _ in range(2)]
     torch.cuda.synchronize()
     for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    for a, b in zip(*split):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_backward_equals_fused_on_card(dtype):
+    """The split backward's dq and dk/dv kernels are the fused backward's
+    two kernels, so they give its dq, dk and dv bit for bit (run on a
+    machine with an NVIDIA GPU; see README)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the flash kernels have no CPU mode")
+    q, k, v, do, mask, lse, delta = flash_inputs(dtype, b=2, h=3, s=448, seed=3)
+    args = (q, k, v, do, lse, delta, mask)
+    fused = flash_kernel.flash_backward_fused(*args)
+    split = (flash_kernel.flash_backward_dq(*args), *flash_kernel.flash_backward_dkv(*args))
+    torch.cuda.synchronize()
+    for a, b in zip(split, fused):
         assert torch.equal(a, b)

@@ -1,7 +1,8 @@
-"""Time the bf16 flash-attention kernels of vtamiq_tpu_torch on a CUDA card
-at the 5000-patch shapes, beside PyTorch's scaled_dot_product_attention.
+"""Time the flash-attention kernels of vtamiq_tpu_torch on a CUDA card at
+the 5000-patch shapes, beside PyTorch's scaled_dot_product_attention.
 
-    python3 tools/torch_flash_bench.py [--root DIR] [--reps 10] [--profile]
+    python3 tools/torch_flash_bench.py [--root DIR] [--dtype bfloat16|float32]
+                                       [--reps 10] [--profile]
 
 ``--root`` imports ``vtamiq_tpu_torch`` from another checkout, such as a
 parent commit unpacked with ``git archive`` into ``.ab_parent/`` (which
@@ -9,19 +10,21 @@ parent commit unpacked with ``git archive`` into ``.ab_parent/`` (which
 Prints JSON lines:
 
 - build: the kernels' build time and nvcc's ``-Xptxas -v`` lines;
-- time: medians of CUDA-event timed launches of flash_forward and
-  flash_backward_fused at q, k, v (16, 12, 5056, 64) bf16, 5009 valid keys,
-  beside scaled_dot_product_attention's forward and backward on the same
-  tensors (the yardstick; the port never calls it), with the card's name
-  and power limit;
+- time: medians of CUDA-event timed launches of flash_forward,
+  flash_backward_fused and the split backward's flash_backward_dq and
+  flash_backward_dkv at q, k, v (16, 12, 5056, 64) in ``--dtype`` (TF32 off
+  for float32), 5009 valid keys, beside scaled_dot_product_attention's
+  forward and backward on the same tensors (the yardstick; the port never
+  calls it), with the card's name and power limit;
 - profile (with ``--profile``): torch.profiler's device time per kernel
   over 3 forward and 3 fused-backward calls, per call (the fused backward
-  is two kernels in bf16).
+  is two kernels).
 
 Correctness is checked by chip_smoke.py and tests/test_torch_kernels_gpu.py.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -53,15 +56,24 @@ def median_ms(fn, warmup=3, reps=10):
     return float(np.median(times))
 
 
-def inputs(fk, seed=0):
-    """bf16 (B, H, S, D) views of (B, S, H, D) tensors, as the model builds
+def sdpa_backend(dtype):
+    """fp32 attention in SDPA's memory-efficient kernel: its math fallback
+    would hold the (16, 12, 5056, 5056) fp32 probabilities, 19.6 GB."""
+    if dtype != torch.float32:
+        return contextlib.nullcontext()
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    return sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION])
+
+
+def inputs(fk, dtype, seed=0):
+    """(B, H, S, D) views of (B, S, H, D) tensors, as the model builds
     them, keys past the 5009 valid ones masked; the backward's do, lse and
     delta from the plain forward."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     mask = torch.zeros(ROWS, S_PAD, dtype=torch.bool, device="cuda")
     mask[:, :S_VALID] = True
     q, k, v, do = (torch.randn(ROWS, S_PAD, HEADS, HEAD_DIM, generator=gen, device="cuda")
-                   .to(torch.bfloat16).transpose(1, 2) for _ in range(4))
+                   .to(dtype).transpose(1, 2) for _ in range(4))
     out, lse = fk.flash_forward_plain(q, k, v, mask)
     return q, k, v, do, mask, lse, fk.delta_of(do, out)
 
@@ -69,6 +81,7 @@ def inputs(fk, seed=0):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
@@ -87,19 +100,24 @@ def main():
           "ptxas": [ln.strip() for ln in info.log.splitlines()
                     if "registers" in ln or "Compiling entry" in ln or "spill" in ln]})
 
-    q, k, v, do, mask, lse, delta = inputs(fk)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    q, k, v, do, mask, lse, delta = inputs(fk, getattr(torch, args.dtype))
     bwd = (q, k, v, do, lse, delta, mask)
     ms = {"flash_fwd": median_ms(lambda: fk.flash_forward(q, k, v, mask), reps=args.reps),
-          "flash_bwd_fused": median_ms(lambda: fk.flash_backward_fused(*bwd), reps=args.reps)}
+          "flash_bwd_fused": median_ms(lambda: fk.flash_backward_fused(*bwd), reps=args.reps),
+          "flash_bwd_dq": median_ms(lambda: fk.flash_backward_dq(*bwd), reps=args.reps),
+          "flash_bwd_dkv": median_ms(lambda: fk.flash_backward_dkv(*bwd), reps=args.reps)}
     attn_mask = mask[:, None, None, :]
-    with torch.no_grad():
+    with torch.no_grad(), sdpa_backend(q.dtype):
         ms["sdpa_fwd"] = median_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask), reps=args.reps)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=attn_mask)
+    with sdpa_backend(q.dtype):
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=attn_mask)
     ms["sdpa_bwd"] = median_ms(
         lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True), reps=args.reps)
-    emit({"time_ms": ms, "shape": f"({ROWS}, {HEADS}, {S_PAD}, {HEAD_DIM}) bf16, "
+    emit({"time_ms": ms, "shape": f"({ROWS}, {HEADS}, {S_PAD}, {HEAD_DIM}) {args.dtype}, "
           f"{S_VALID} valid keys", "root": args.root, "card": card})
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -114,7 +132,8 @@ def main():
                       or getattr(evt, "self_cuda_time_total", 0))
             if evt.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
                 per_call[evt.key[:100]] = dev_us / 3 / 1e3
-        emit({"profile_ms_per_call": per_call, "root": args.root, "card": card})
+        emit({"profile_ms_per_call": per_call, "dtype": args.dtype, "root": args.root,
+              "card": card})
 
 
 if __name__ == "__main__":

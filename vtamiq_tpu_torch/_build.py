@@ -36,7 +36,9 @@ _c_float_p = ctypes.POINTER(ctypes.c_float)
 _c_ll_p = ctypes.POINTER(ctypes.c_longlong)
 _FLASH_SHAPE = [_c_ll_p, _c_int, _c_int, _c_int, _c_int]  # strides, B, H, S, D
 _FLASH_FWD = [_c_void_p] * 6 + _FLASH_SHAPE + [_c_void_p]
-_FLASH_SPLIT_TAIL = _FLASH_SHAPE + [_c_int, _c_void_p]      # ..., is_bf16, stream
+_FLASH_BWD_DQ = [_c_void_p] * 8 + _FLASH_SHAPE + [_c_void_p]
+_FLASH_BWD_DKV = [_c_void_p] * 9 + _FLASH_SHAPE + [_c_void_p]
+_FLASH_BWD = [_c_void_p] * 10 + _FLASH_SHAPE + [_c_void_p]
 # C signatures of the library's entry points (pointers and the stream as
 # c_void_p, so 64-bit addresses are never cut to a 32-bit int)
 _SIGNATURES = {
@@ -46,12 +48,14 @@ _SIGNATURES = {
     # q, k, v, mask, out, lse, strides, B, H, S, D, stream
     "vtamiq_flash_fwd_f32": _FLASH_FWD,
     "vtamiq_flash_fwd_bf16": _FLASH_FWD,
-    # q, k, v, do, lse, delta, mask, dq, dk, dv, strides, B, H, S, D, stream
-    "vtamiq_flash_bwd_bf16": [_c_void_p] * 10 + _FLASH_SHAPE + [_c_void_p],
-    # q, k, v, do, lse, delta, mask, dq, strides, B, H, S, D, is_bf16, stream
-    "vtamiq_flash_bwd_dq": [_c_void_p] * 8 + _FLASH_SPLIT_TAIL,
-    # q, k, v, do, lse, delta, mask, dk, dv, strides, B, H, S, D, is_bf16, stream
-    "vtamiq_flash_bwd_dkv": [_c_void_p] * 9 + _FLASH_SPLIT_TAIL,
+    # q, k, v, do, lse, delta, mask, then the outputs (dq; dk, dv; or all
+    # three), strides (q, k, v, do, dq, dk, dv), B, H, S, D, stream
+    "vtamiq_flash_bwd_dq_f32": _FLASH_BWD_DQ,
+    "vtamiq_flash_bwd_dq_bf16": _FLASH_BWD_DQ,
+    "vtamiq_flash_bwd_dkv_f32": _FLASH_BWD_DKV,
+    "vtamiq_flash_bwd_dkv_bf16": _FLASH_BWD_DKV,
+    "vtamiq_flash_bwd_f32": _FLASH_BWD,
+    "vtamiq_flash_bwd_bf16": _FLASH_BWD,
 }
 
 

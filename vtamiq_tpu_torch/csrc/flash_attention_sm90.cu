@@ -1,13 +1,17 @@
-// Flash attention in bf16 for Hopper (sm_90a): the forward and the fused
+// Flash attention in bf16 for Hopper (sm_90a): the forward and the
 // backward, on register-resident mma.sync tiles.
 //
 // Replaces, for bf16 inputs, the Pallas TPU kernels of vtamiq_tpu/ops/attention.py:
-//   flash_fwd_sm90                      <- _flash_fwd_kernel (driven by _flash_forward)
-//   flash_bwd_dq_sm90 + flash_bwd_dkv_sm90
-//                                       <- _flash_bwd_fused_kernel (_flash_backward_fused)
-// fp32 inputs, and the split backward (fused=False), keep the kernels of
-// flash_attention.cu, whose header states the function: per (batch row,
-// head), logits = q k^T * scale with invalid keys at NEG_INF = -1e30,
+//   flash_fwd_sm90      <- _flash_fwd_kernel (driven by _flash_forward)
+//   flash_bwd_dq_sm90   <- _flash_bwd_dq_kernel (_flash_backward, fused=False)
+//   flash_bwd_dkv_sm90  <- _flash_bwd_dkv_kernel (_flash_backward, fused=False)
+//   both, one after the other
+//                       <- _flash_bwd_fused_kernel (_flash_backward_fused)
+// Given lse and delta, the split pair computes the fused kernel's function,
+// so one pair of kernels serves both. fp32 inputs take flash_attention.cu
+// (the forward) and flash_attention_tf32x3.cu (the backward).
+//
+// The function, per (batch row, head): logits = q k^T * scale with invalid keys at NEG_INF = -1e30,
 // out = softmax(logits) v and lse = logsumexp(logits) in fp32; the backward
 // p = exp(logits - lse), ds = p (do v^T - delta) scale, dq = ds k,
 // dk = ds^T q, dv = p^T do. p is rounded to bf16 before p v and p^T do,
@@ -64,6 +68,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -84,29 +90,9 @@ constexpr int kM = 2;                    // ... of two 16-row strips each
 constexpr int kRows = 16 * kM * kWarps;  // rows a CTA owns (queries, or keys)
 constexpr int kThreads = 32 * kWarps;
 
-struct View {  // element strides of a (B, H, S, D) tensor with unit D stride
-  long long sb, sh, ss;
-};
-
 // ---------------------------------------------------------------------------
 // PTX wrappers
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronous; zero-fills the destination when !pred
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -207,15 +193,6 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&c)[2][4]) {
   a[3] = pack_bf16(c[1][2], c[1][3]);
 }
 
-template <int kA, int kB> __device__ __forceinline__ void zero(float (&c)[kA][kB][4]) {
-#pragma unroll
-  for (int m = 0; m < kA; ++m)
-#pragma unroll
-    for (int j = 0; j < kB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) c[m][j][e] = 0.0f;
-}
-
 // one accumulator strip (rows row0 + g, row0 + g + 8) as bf16 rows of a
 // (token, D) matrix; rows at or past S are skipped
 __device__ __forceinline__ void store_strip(bf16* base, long long ss, int row0, int S,
@@ -250,14 +227,6 @@ __device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src, long long 
     const int r = c / kChunks, ch = c % kChunks;
     const bool ok = row0 + r < S;
     cp_async16(dst + r * kPitch + ch * 8, src + (ok ? row0 + r : 0) * ss + ch * 8, ok);
-  }
-}
-
-// bytes [0, nbytes) of src into dst, 16 per thread, by threads first..first+nbytes/16-1
-__device__ __forceinline__ void copy_bytes(void* dst, const void* src, int nbytes, int first) {
-  const int c = static_cast<int>(threadIdx.x) - first;
-  if (c >= 0 && 16 * c < nbytes) {
-    cp_async16(static_cast<char*>(dst) + 16 * c, static_cast<const char*>(src) + 16 * c, true);
   }
 }
 
@@ -639,24 +608,10 @@ flash_bwd_dkv_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // launches
 // ---------------------------------------------------------------------------
 
-View view_at(const long long* strides, int i) {
-  return View{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-}
-
 // 16-byte rows for cp.async and 4-byte pairs for the stores
 bool aligned(const void* p, const View& vw) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && vw.sb % 8 == 0 && vw.sh % 8 == 0 &&
          vw.ss % 8 == 0;
-}
-
-bool shapes_ok(int B, int H, int S, int D) {
-  return B > 0 && H > 0 && S > 0 && D == kD && S % kTile == 0 && B <= 65535 && H <= 65535;
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
 }
 
 float log2_scale(int D) { return kLog2e / sqrtf(static_cast<float>(D)); }
@@ -691,41 +646,66 @@ extern "C" int vtamiq_flash_fwd_bf16(const void* q, const void* k, const void* v
   return static_cast<int>(cudaGetLastError());
 }
 
-// the fused backward: the dq kernel, then the dk/dv kernel, on one stream.
-// strides: q, k, v, do, dq, dk, dv (21 values)
+// strides of the backward entry points: q, k, v, do, dq, dk, dv (21
+// values); an entry reads only the slots of the outputs it writes.
+
+// the split backward's dq pass: flash_bwd_dq_sm90
+extern "C" int vtamiq_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
+                                        const void* dout, const void* lse, const void* delta,
+                                        const void* mask, void* dq, const long long* strides,
+                                        int B, int H, int S, int D, void* stream) {
+  const View vq = view_at(strides, 0), vk = view_at(strides, 1), vv = view_at(strides, 2),
+             vdo = view_at(strides, 3), vdq = view_at(strides, 4);
+  if (!shapes_ok(B, H, S, D) || !aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) ||
+      !aligned(dout, vdo) || !aligned(dq, vdq) || !vectors_aligned(mask, lse, delta)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = allow_smem(flash_bwd_dq_sm90, kDqSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + kRows - 1) / kRows, H, B);
+  flash_bwd_dq_sm90<<<grid, kThreads, kDqSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
+      static_cast<bf16*>(dq), vq, vk, vv, vdo, vdq, H, S, 1.0f / sqrtf(static_cast<float>(D)),
+      log2_scale(D));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the split backward's dk/dv pass: flash_bwd_dkv_sm90
+extern "C" int vtamiq_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
+                                         const void* dout, const void* lse, const void* delta,
+                                         const void* mask, void* dk, void* dv,
+                                         const long long* strides, int B, int H, int S, int D,
+                                         void* stream) {
+  const View vq = view_at(strides, 0), vk = view_at(strides, 1), vv = view_at(strides, 2),
+             vdo = view_at(strides, 3), vdk = view_at(strides, 5), vdv = view_at(strides, 6);
+  if (!shapes_ok(B, H, S, D) || !aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) ||
+      !aligned(dout, vdo) || !aligned(dk, vdk) || !aligned(dv, vdv) ||
+      !vectors_aligned(mask, lse, delta)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = allow_smem(flash_bwd_dkv_sm90, kDkvSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + kRows - 1) / kRows, H, B);
+  flash_bwd_dkv_sm90<<<grid, kThreads, kDkvSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), vq, vk, vv, vdo, vdk, vdv, H, S,
+      1.0f / sqrtf(static_cast<float>(D)), log2_scale(D));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the fused backward: the dq pass, then the dk/dv pass, on one stream
 extern "C" int vtamiq_flash_bwd_bf16(const void* q, const void* k, const void* v,
                                      const void* dout, const void* lse, const void* delta,
                                      const void* mask, void* dq, void* dk, void* dv,
                                      const long long* strides, int B, int H, int S, int D,
                                      void* stream) {
-  const View vq = view_at(strides, 0), vk = view_at(strides, 1), vv = view_at(strides, 2),
-             vdo = view_at(strides, 3), vdq = view_at(strides, 4), vdk = view_at(strides, 5),
-             vdv = view_at(strides, 6);
-  if (!shapes_ok(B, H, S, D) || !aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) ||
-      !aligned(dout, vdo) || !aligned(dq, vdq) || !aligned(dk, vdk) || !aligned(dv, vdv) ||
-      reinterpret_cast<uintptr_t>(mask) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(lse) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(delta) % 16 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = allow_smem(flash_bwd_dq_sm90, kDqSmem);
-  if (err == cudaSuccess) err = allow_smem(flash_bwd_dkv_sm90, kDkvSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((S + kRows - 1) / kRows, H, B);
-  flash_bwd_dq_sm90<<<grid, kThreads, kDqSmem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
-      static_cast<bf16*>(dq), vq, vk, vv, vdo, vdq, H, S, scale, log2_scale(D));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkv_sm90<<<grid, kThreads, kDkvSmem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), vq, vk, vv, vdo, vdk, vdv, H, S, scale,
-      log2_scale(D));
-  return static_cast<int>(cudaGetLastError());
+  const int err = vtamiq_flash_bwd_dq_bf16(q, k, v, dout, lse, delta, mask, dq, strides, B, H,
+                                           S, D, stream);
+  if (err != 0) return err;
+  return vtamiq_flash_bwd_dkv_bf16(q, k, v, dout, lse, delta, mask, dk, dv, strides, B, H, S,
+                                   D, stream);
 }

@@ -8,20 +8,29 @@ Replaces the Pallas TPU kernels of ``vtamiq_tpu/ops/attention.py``:
 - ``flash_backward_dq``      <- ``_flash_bwd_dq_kernel``
 - ``flash_backward_dkv``     <- ``_flash_bwd_dkv_kernel``
 
-The kernels: in bf16, the forward and the fused backward are
-``csrc/flash_attention_sm90.cu`` (mma.sync tiles in registers, cp.async
-pipelining); the fp32 kernels and the split backward are
-``csrc/flash_attention.cu``. The fused backward computes dq in a
-query-major kernel and dk, dv in a key-major one (7 products a tile, where
-the Pallas kernel does 5), so it adds no partials with atomics and gives
-the same bits on every run; its one call counts as one launch. Tensors are
+The kernels, per dtype:
+
+- bf16: ``csrc/flash_attention_sm90.cu`` (mma.sync tiles in registers,
+  cp.async pipelining) for all four: ``flash_fwd_sm90``, and the backward
+  as a query-major dq kernel (``flash_bwd_dq_sm90``) and a key-major dk/dv
+  kernel (``flash_bwd_dkv_sm90``).
+- fp32: ``csrc/flash_attention.cu`` for the forward (CUDA-core FMAs), and
+  ``csrc/flash_attention_tf32x3.cu`` for the backward: the same dq and
+  dk/dv roles with fp32-accurate products on the tensor cores as 3xTF32.
+
+The split backward (``flash_backward_dq``, ``flash_backward_dkv``) launches
+one kernel of the pair each; the fused backward launches both and counts as
+one ``flash_bwd_fused`` launch, so split and fused give the same bits. The
+backward adds no partials with atomics (7 products a tile, where the fused
+Pallas kernel does 5), so it gives the same bits on every run. Tensors are
 (B, H, S, D) views: any batch, head and token strides, a contiguous D axis,
 so the model's (B, S, H, D) projections pass as ``.transpose(1, 2)`` views
-without a copy; the bf16 kernels also need strides that are multiples of 8
-and 16-byte aligned data. ``mask`` is (B, S) bool, False = invalid key;
-``lse`` and ``delta`` are (B, H, S) fp32. The kernels take bf16 or fp32
-with D = 64 and S a multiple of ``BLOCK`` (the caller pads,
-``ops/attention.py``); the plain versions take any S and D.
+without a copy. The kernels that copy rows by 16-byte cp.async (all but the
+fp32 forward) also need 16-byte aligned data and strides that are 16 bytes'
+multiples. ``mask`` is (B, S) bool, False = invalid key; ``lse`` and
+``delta`` are (B, H, S) fp32. The kernels take bf16 or fp32 with D = 64 and
+S a multiple of ``BLOCK`` (the caller pads, ``ops/attention.py``); the plain
+versions take any S and D.
 
 Each wrapper runs its kernel for tensors on the card and its plain version
 for tensors on the CPU; there is no other fallback. ``launches`` counts each
@@ -94,26 +103,27 @@ def _check_kernel(b, h, s, d, tensors, vectors):
 
 
 def _check_aligned(tensors, vectors):
-    """``flash_attention_sm90.cu``'s bf16 kernels copy 16-byte row chunks:
-    every (B, H, S, D) tensor needs 16-byte aligned data and batch, head and
-    token strides that are multiples of 8 elements; the (B, S) and
-    (B, H, S) vectors 16-byte aligned data."""
+    """The kernels that copy 16-byte row chunks (the bf16 kernels and the
+    fp32 backward): every (B, H, S, D) tensor needs 16-byte aligned data
+    and batch, head and token strides that are multiples of 16 bytes (8
+    bf16 or 4 fp32 elements); the (B, S) and (B, H, S) vectors 16-byte
+    aligned data."""
     for t in tensors:
-        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
-            raise ValueError(f"the bf16 flash kernels need 16-byte aligned data and strides "
-                             f"that are multiples of 8, got strides {t.stride()}")
+        n = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(st % n for st in t.stride()[:3]):
+            raise ValueError(f"the flash kernels need 16-byte aligned {t.dtype} data and "
+                             f"strides that are multiples of {n}, got strides {t.stride()}")
     for t in vectors:
         if t.data_ptr() % 16:
-            raise ValueError("the bf16 flash kernels need 16-byte aligned mask, lse and delta")
+            raise ValueError("the flash kernels need 16-byte aligned mask, lse and delta")
 
 
-def _strides(*tensors, count=None):
-    """(batch, head, token) element strides of each tensor, padded with
-    zeros to ``count`` tensors, as the C ``long long`` array."""
+def _strides(*tensors):
+    """(batch, head, token) element strides of each tensor, as the C
+    ``long long`` array."""
     vals = []
     for t in tensors:
         vals += [t.stride(0), t.stride(1), t.stride(2)]
-    vals += [0] * (3 * (count or len(tensors)) - len(vals))
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
@@ -216,54 +226,31 @@ def flash_forward(q, k, v, mask) -> Tuple[torch.Tensor, torch.Tensor]:
     return out, lse
 
 
-def _bwd_lib(q, k, v, do, lse, delta, mask):
-    """The kernels' library, after the backward kernels' argument checks."""
+def _launch_bwd(name, entry, q, k, v, do, lse, delta, mask, outs, views):
+    """Checks the backward's arguments, then launches the C entry point
+    ``entry`` of q's dtype (``<entry>_bf16`` or ``<entry>_f32``), which
+    writes ``outs``; ``views`` fill the stride slots q, k, v, do, dq, dk,
+    dv."""
     b, h, s, d = _check(q, k, v, mask, do, lse, delta)
     _check_kernel(b, h, s, d, (q, k, v, do), (mask, lse, delta))
+    _check_aligned((q, k, v, do) + outs, (mask, lse, delta))
     from .._build import load_library
-    return load_library()
-
-
-def _call_dq(lib, q, k, v, do, lse, delta, mask, dq):
-    """The split backward's dq kernel of ``flash_attention.cu``; its C
-    return code."""
-    b, h, s, d = q.shape
-    return lib.vtamiq_flash_bwd_dq(
-        *(t.data_ptr() for t in (q, k, v, do, lse, delta, mask, dq)),
-        _strides(q, k, v, do, dq, count=7), b, h, s, d, int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream().cuda_stream)
-
-
-def _call_dkv(lib, q, k, v, do, lse, delta, mask, dk, dv):
-    """The split backward's dk/dv kernel of ``flash_attention.cu``; its C
-    return code. The dq slot of its stride array is unused."""
-    b, h, s, d = q.shape
-    return lib.vtamiq_flash_bwd_dkv(
-        *(t.data_ptr() for t in (q, k, v, do, lse, delta, mask, dk, dv)),
-        _strides(q, k, v, do, q, dk, dv), b, h, s, d, int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream().cuda_stream)
+    lib = load_library()
+    fn = getattr(lib, entry + ("_bf16" if q.dtype == torch.bfloat16 else "_f32"))
+    with torch.cuda.device(q.device):
+        _launch(name, fn, *(t.data_ptr() for t in (q, k, v, do, lse, delta, mask) + outs),
+                _strides(*views), b, h, s, d, torch.cuda.current_stream().cuda_stream)
 
 
 def flash_backward_fused(q, k, v, do, lse, delta, mask):
-    """(dq, dk, dv) from the fused backward: in bf16 the dq and the dk/dv
-    kernel of ``flash_attention_sm90.cu``, in fp32 the split pair's kernels
-    of ``flash_attention.cu``, one call and one launch count either way;
-    the same bits on every run. Arguments as ``flash_backward_plain``."""
+    """(dq, dk, dv) from the fused backward: the dq and the dk/dv kernel of
+    the dtype, one call and one launch count; the same bits on every run.
+    Arguments as ``flash_backward_plain``."""
     if not _on_card(q, "flash_backward_fused"):
         return flash_backward_plain(q, k, v, do, lse, delta, mask)
-    lib = _bwd_lib(q, k, v, do, lse, delta, mask)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        if q.dtype == torch.bfloat16:
-            _check_aligned((q, k, v, do, dq, dk, dv), (mask, lse, delta))
-            _launch("flash_bwd_fused", lib.vtamiq_flash_bwd_bf16,
-                    *(t.data_ptr() for t in (q, k, v, do, lse, delta, mask, dq, dk, dv)),
-                    _strides(q, k, v, do, dq, dk, dv), *q.shape,
-                    torch.cuda.current_stream().cuda_stream)
-        else:
-            args = (lib, q, k, v, do, lse, delta, mask)
-            _launch("flash_bwd_fused",
-                    lambda: _call_dq(*args, dq) or _call_dkv(*args, dk, dv))
+    _launch_bwd("flash_bwd_fused", "vtamiq_flash_bwd", q, k, v, do, lse, delta, mask,
+                (dq, dk, dv), (q, k, v, do, dq, dk, dv))
     return dq, dk, dv
 
 
@@ -271,21 +258,19 @@ def flash_backward_dq(q, k, v, do, lse, delta, mask) -> torch.Tensor:
     """dq from the split backward's dq kernel."""
     if not _on_card(q, "flash_backward_dq"):
         return flash_backward_plain(q, k, v, do, lse, delta, mask)[0]
-    lib = _bwd_lib(q, k, v, do, lse, delta, mask)
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        _launch("flash_bwd_dq", _call_dq, lib, q, k, v, do, lse, delta, mask, dq)
+    _launch_bwd("flash_bwd_dq", "vtamiq_flash_bwd_dq", q, k, v, do, lse, delta, mask, (dq,),
+                (q, k, v, do, dq, dq, dq))
     return dq
 
 
 def flash_backward_dkv(q, k, v, do, lse, delta, mask) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) from the split backward's dkv kernel."""
+    """(dk, dv) from the split backward's dk/dv kernel."""
     if not _on_card(q, "flash_backward_dkv"):
         return flash_backward_plain(q, k, v, do, lse, delta, mask)[1:]
-    lib = _bwd_lib(q, k, v, do, lse, delta, mask)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        _launch("flash_bwd_dkv", _call_dkv, lib, q, k, v, do, lse, delta, mask, dk, dv)
+    _launch_bwd("flash_bwd_dkv", "vtamiq_flash_bwd_dkv", q, k, v, do, lse, delta, mask,
+                (dk, dv), (q, k, v, do, dk, dk, dv))
     return dk, dv
 
 
