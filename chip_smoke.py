@@ -13,8 +13,11 @@ Phases, each printing one JSON line:
                  scorer's shapes (16 images 384x512x3, 500 patches of 16x16,
                  bf16 out with the normalization fused), an fp32 case without
                  normalization, and an odd width (481) with corners on and
-                 past the edges. Both timed with CUDA events (median of 30
-                 launches after warm-up).
+                 past the edges. The kernel's device time: CUDA events around
+                 a CUDA graph of 200 back-to-back launches of its C entry
+                 point, over 200 (and the same with the 50 MB L2 flushed
+                 before each launch); one wrapper call and the plain version
+                 timed with CUDA events (median of 30 calls after warm-up).
 4. attention   — the flash-attention forward, fused backward and split
                  (dq, dkv) backward kernels against their plain versions at
                  the 5000-patch shapes (16 rows, 12 heads, 5009 tokens padded
@@ -41,7 +44,9 @@ Phases, each printing one JSON line:
                  scores through 5 flash-forward launches and 1 gather launch;
                  pairs/s; at batch 2 in fp32 (TF32 off) the forward with
                  flash attention against the plain quadratic forward on the
-                 same patches (|dq| <= 1e-3).
+                 same patches (|dq| <= 1e-3), each timed (median of 3 calls),
+                 with the fp32 flash-forward launches counted in the timed
+                 calls.
 8. train_5000p — make_train_step at batch 8, bf16, AdamW(5e-5, wd 0.01),
                  loss weights (1, 1, 1): 1 warm-up and 3 timed steps (5 flash
                  forward and 5 fused backward launches each), one timed step
@@ -49,11 +54,12 @@ Phases, each printing one JSON line:
                  batch 2 the fused and split backward's gradient norms agree
                  (1e-4 relative), a step through the flash kernels against a
                  step through plain attention (loss 1e-5), and the encoder's
-                 gradient through each (every tensor 1e-3 relative).
+                 gradient through each (every tensor 1e-3 relative), with
+                 the flash launches of each fp32 run reported.
 9. kernels     — one JSON object per kernel: time, bound, plain time,
                  library time in bf16 and in fp32 (the fp32 bound at the
                  3xTF32 rate, beside it at the FFMA rate), launches on the
-                 main path.
+                 main path and in the fp32 runs.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, so the
 exit code is not 0; with no CUDA device the script exits 1 before any result.
@@ -75,6 +81,7 @@ from concurrent.futures import ThreadPoolExecutor  # noqa: E402
 
 import contextlib  # noqa: E402
 import copy  # noqa: E402
+import ctypes  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -117,6 +124,10 @@ BF16_TOKEN_REL_TOL = 2e-2
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+GATHER_LAUNCHES = 200         # back-to-back launches timed as one CUDA graph
+L2_FLUSH_BYTES = 64 * 1024**2  # more than the H100's 50 MB L2
 
 
 def median_ms(fn, warmup=5, reps=30):
@@ -197,6 +208,71 @@ def _gather_bound_ms(img, ti, tj, out):
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
+def gather_launcher(img, ti, tj, mean, inv_std, out_dtype):
+    """A launch of the gather kernel's C entry point on the current stream,
+    with the wrapper's checks and its allocation of the output done once
+    beforehand, so that only the device's work is timed. Launches made
+    here are not counted in ``gather_kernel.launches``."""
+    lib = _build.load_library()
+    m, h, w, c = img.shape
+    n = ti.shape[1]
+    out = torch.empty((m, n, P, P, c), dtype=out_dtype, device=img.device)
+    floats = ctypes.c_float * c
+    norm = (floats(*mean), floats(*inv_std)) if mean is not None else (None, None)
+
+    def launch():  # holds img, ti, tj and out alive for as long as it is called
+        err = lib.vtamiq_gather_patches(
+            img.data_ptr(), ti.data_ptr(), tj.data_ptr(), out.data_ptr(), m, h, w, c, n, P,
+            int(mean is not None), *norm, int(out_dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"gather kernel launch failed: CUDA error {err}")
+
+    return launch
+
+
+def graph_ms(work, count=GATHER_LAUNCHES, replays=5):
+    """Median over ``replays`` of CUDA events around one replay of a CUDA
+    graph that holds ``count`` back-to-back calls of ``work``, over
+    ``count``."""
+    for _ in range(3):
+        work()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(count):
+            work()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / count)
+    del graph
+    return float(np.median(times))
+
+
+def gather_device_ms(launch):
+    """The gather's device time per launch, back to back (the image stays
+    in L2 as far as it fits), and with the L2 flushed before each launch
+    (a graph of flush + launch, less a graph of the flushes alone)."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+
+    def flushed():
+        flush.zero_()
+        launch()
+
+    warm = graph_ms(launch)
+    cold = graph_ms(flushed) - graph_ms(flush.zero_)
+    del flush
+    return warm, cold
+
+
 def phase_kernel():
     gen = torch.Generator().manual_seed(SEED)
     mean, inv_std = (0.5, 0.5, 0.5), (2.0, 2.0, 2.0)
@@ -224,16 +300,19 @@ def phase_kernel():
                                  f"max abs err {err}")
 
     x, a, b, mu, inv, dt = cases["main_bf16_norm"]
-    kernel_ms = median_ms(lambda: gather_kernel.gather_patches(x, a, b, P, mu, inv, dt))
+    device_ms, device_cold_ms = gather_device_ms(gather_launcher(x, a, b, mu, inv, dt))
+    call_ms = median_ms(lambda: gather_kernel.gather_patches(x, a, b, P, mu, inv, dt))
     plain_ms = median_ms(lambda: gather_kernel.gather_patches_plain(x, a, b, P, mu, inv, dt))
     out = gather_kernel.gather_patches(x, a, b, P, mu, inv, dt)
     bound_ms, bound_by = _gather_bound_ms(x, a, b, out)
+    timing = {"device_ms_back_to_back": device_ms, "device_ms_l2_flushed": device_cold_ms,
+              "call_ms_with_wrapper": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by}
     emit({"phase": "kernel", "cases": results, "shape": "16 x 384x512x3 fp32 -> 16 x 500 "
-          "x 16x16x3 bf16, normalize fused", "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-          "bound_ms": bound_ms, "bound_by": bound_by})
-    return {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "max_abs_err": max(r["max_abs_err"] for r in results.values())}
+          "x 16x16x3 bf16, normalize fused", **timing,
+          "device_timing": f"CUDA events around a CUDA graph of {GATHER_LAUNCHES} "
+          "back-to-back launches of the C entry point, over their count, median of 5"})
+    return {**timing, "max_abs_err": max(r["max_abs_err"] for r in results.values())}
 
 
 # ---------------------------------------------------------------------------
@@ -421,15 +500,11 @@ ATTN_TOL = {torch.float32: dict(out=1e-5, lse=1e-5, grad=1e-4),
 # (row, head), and one exp per logit (the fused backward's function needs 5
 # matmuls; its kernels do 7, computing dq apart from dk and dv)
 FLASH_MATMULS = {"flash_fwd": 2, "flash_bwd_fused": 5, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
-# the CUDA source of each kernel in bf16 (the main path's type) and in fp32
-FLASH_SOURCE = {"flash_fwd": "vtamiq_tpu_torch/csrc/flash_attention_sm90.cu",
-                "flash_bwd_fused": "vtamiq_tpu_torch/csrc/flash_attention_sm90.cu",
-                "flash_bwd_dq": "vtamiq_tpu_torch/csrc/flash_attention_sm90.cu",
-                "flash_bwd_dkv": "vtamiq_tpu_torch/csrc/flash_attention_sm90.cu"}
-FLASH_SOURCE_FP32 = {"flash_fwd": "vtamiq_tpu_torch/csrc/flash_attention.cu",
-                     "flash_bwd_fused": "vtamiq_tpu_torch/csrc/flash_attention_tf32x3.cu",
-                     "flash_bwd_dq": "vtamiq_tpu_torch/csrc/flash_attention_tf32x3.cu",
-                     "flash_bwd_dkv": "vtamiq_tpu_torch/csrc/flash_attention_tf32x3.cu"}
+# the CUDA source of each kernel in bf16 (the main path's type) and in fp32:
+# one file holds every kernel of a type
+FLASH_SOURCE = dict.fromkeys(FLASH_MATMULS, "vtamiq_tpu_torch/csrc/flash_attention_sm90.cu")
+FLASH_SOURCE_FP32 = dict.fromkeys(FLASH_MATMULS,
+                                  "vtamiq_tpu_torch/csrc/flash_attention_tf32x3.cu")
 # the Pallas kernel bodies each CUDA kernel replaces
 FLASH_REPLACES = {"flash_fwd": "vtamiq_tpu/ops/attention.py:122",
                   "flash_bwd_fused": "vtamiq_tpu/ops/attention.py:300",
@@ -637,21 +712,31 @@ def phase_scorer_5000p(card, refs, dists):
                                                          gather_dtype="float32"))
     raw = torch.from_numpy(np.stack([np.stack([r, d]) for r, d in zip(refs[:2], dists[:2])]))
     patches, pos, scales = extract(raw.cuda(), torch.Generator().manual_seed(SEED))
-    with torch.inference_mode():
-        q_flash = vtamiq_forward(s32.params, s32.cfg, patches, pos, scales,
-                                 compute_dtype=torch.float32, attention_fn=make_attention_fn())
-        q_quad = vtamiq_forward(s32.params, s32.cfg, patches, pos, scales,
-                                compute_dtype=torch.float32)
+
+    def forward(attention_fn):
+        with torch.inference_mode():
+            return vtamiq_forward(s32.params, s32.cfg, patches, pos, scales,
+                                  compute_dtype=torch.float32, attention_fn=attention_fn)
+
+    q_flash, q_quad = forward(make_attention_fn()), forward(None)
     dq = float((q_flash - q_quad).abs().max())
+    # the fp32 forward at batch 2, timed: 3 calls each way, the flash
+    # forward's launches counted in the 3 flash calls
+    flash_kernel.reset_launches()
+    flash_s = median_ms(lambda: forward(make_attention_fn()), 0, 3) / 1e3
+    fp32_launches = dict(flash_kernel.launches)
+    quad_s = median_ms(lambda: forward(None), 0, 3) / 1e3
     emit({"phase": "scorer_5000p", "config": f"ViT-B/16 6 layers, 8 registers, {N_LONG} "
           f"patches of 16x16, {H}x{W}, bf16", "q": [float(q) for q in qs],
           "launches": launches, "expected_launches": expected, "batch": PAIRS,
           "batch_s_median": med, "pairs_per_s": PAIRS / med,
           "fp32_flash_vs_quadratic": dq, "fp32_tol": FP32_LONG_Q_TOL,
-          "q_fp32_flash": q_flash.tolist(), "q_fp32_quadratic": q_quad.tolist(), "card": card})
+          "q_fp32_flash": q_flash.tolist(), "q_fp32_quadratic": q_quad.tolist(),
+          "fp32_batch": 2, "fp32_forward_s_flash": flash_s, "fp32_forward_s_quadratic": quad_s,
+          "fp32_launches_in_3_flash_calls": fp32_launches, "card": card})
     if not dq <= FP32_LONG_Q_TOL:
         raise AssertionError(f"fp32 flash vs quadratic forward: |dq| {dq} > {FP32_LONG_Q_TOL}")
-    return launches
+    return launches, fp32_launches
 
 
 # ---------------------------------------------------------------------------
@@ -760,7 +845,7 @@ def phase_train_5000p(card, refs, dists):
             and checks["encoder_grad_rel_max"] <= ENCODER_GRAD_TOL
             and checks["encoder_key_bias_err_of_total"] <= KEY_BIAS_TOL):
         raise AssertionError(f"flash vs plain in fp32: {checks}")
-    return launches, split_launches
+    return launches, split_launches, checks["fp32_flash_launches"]
 
 
 def fp32_checks(cfg, base, raw):
@@ -773,8 +858,9 @@ def fp32_checks(cfg, base, raw):
     targets = torch.full((b,), FAR_TARGET, device=raw.device)
     flash, split = make_attention_fn(), make_attention_fn(fused_bwd=False)
 
-    steps = {}
+    steps, launches = {}, {}
     for name, attention_fn in (("fused", flash), ("split", split), ("plain", None)):
+        flash_kernel.reset_launches()
         model = copy.deepcopy(base).cuda()
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
         sgd = Optimizer("SGD", lambda count: torch.tensor(1.0), max_norm=float("inf"))
@@ -788,6 +874,7 @@ def fp32_checks(cfg, base, raw):
         steps[name] = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
                        "delta": torch.cat([(p.detach() - before[n]).reshape(-1)
                                            for n, p in model.named_parameters()])}
+        launches[f"{name}_step"] = _flash_counts()
         del model, before
     f, s, p = steps["fused"], steps["split"], steps["plain"]
 
@@ -798,6 +885,7 @@ def fp32_checks(cfg, base, raw):
     proj = None
     grads = {}
     for name, attention_fn in (("flash", flash), ("plain", None)):
+        flash_kernel.reset_launches()
         tokens = vit(*flat, compute_dtype=torch.float32, train=True, attention_fn=attention_fn)
         if proj is None:
             proj = torch.randn(tokens.shape, device=tokens.device,
@@ -805,6 +893,7 @@ def fp32_checks(cfg, base, raw):
         named = dict(vit.named_parameters())
         grads[name] = dict(zip(named, torch.autograd.grad((tokens * proj).sum(),
                                                           list(named.values()))))
+        launches[f"encoder_{name}"] = _flash_counts()
     total = float(torch.sqrt(sum(g.norm() ** 2 for g in grads["plain"].values())))
     rel = {n: float((grads["flash"][n] - g).norm() / g.norm())
            for n, g in grads["plain"].items() if not n.endswith("attn.key.bias")}
@@ -820,7 +909,7 @@ def fp32_checks(cfg, base, raw):
             "fp32_loss": {k: v["loss"] for k, v in steps.items()},
             "fp32_grad_norm": {k: v["grad_norm"] for k, v in steps.items()},
             "encoder_grad_rel_max": rel[worst], "encoder_worst_tensor": worst,
-            "encoder_key_bias_err_of_total": key_bias}
+            "encoder_key_bias_err_of_total": key_bias, "fp32_flash_launches": launches}
 
 
 def main():
@@ -831,8 +920,8 @@ def main():
     scorer, refs, dists, launches = phase_scorer(smi)
     phase_server(scorer, refs, dists)
     del scorer
-    long_launches = phase_scorer_5000p(smi, refs, dists)
-    train_launches, split_launches = phase_train_5000p(smi, refs, dists)
+    long_launches, fp32_fwd_launches = phase_scorer_5000p(smi, refs, dists)
+    train_launches, split_launches, fp32_launches = phase_train_5000p(smi, refs, dists)
     main_launches = {"flash_fwd": long_launches["flash_fwd"],
                      "flash_bwd_fused": train_launches["flash_bwd_fused"],
                      "flash_bwd_dq": split_launches["flash_bwd_dq"],
@@ -841,6 +930,16 @@ def main():
                    "flash_bwd_fused": "three train_5000p steps",
                    "flash_bwd_dq": "one train_5000p step with the split backward",
                    "flash_bwd_dkv": "one train_5000p step with the split backward"}
+    # fp32: the flash forward in scorer_5000p's 3 timed fp32 forwards, the
+    # backward kernels in the fp32 train steps of the train_5000p checks
+    fp32_main = {"flash_fwd": fp32_fwd_launches["flash_fwd"],
+                 "flash_bwd_fused": fp32_launches["fused_step"]["flash_bwd_fused"],
+                 "flash_bwd_dq": fp32_launches["split_step"]["flash_bwd_dq"],
+                 "flash_bwd_dkv": fp32_launches["split_step"]["flash_bwd_dkv"]}
+    fp32_on = {"flash_fwd": "three fp32 scorer_5000p forwards of 2 pairs",
+               "flash_bwd_fused": "one fp32 train step of 2 pairs (fused backward)",
+               "flash_bwd_dq": "one fp32 train step of 2 pairs (split backward)",
+               "flash_bwd_dkv": "one fp32 train step of 2 pairs (split backward)"}
     kernels = [{
         "name": "gather_patches", "route": "cuda",
         "source": "vtamiq_tpu_torch/csrc/gather_patches.cu",
@@ -848,7 +947,9 @@ def main():
         "replaces_fn": "vtamiq_tpu/ops/gather_kernel.py::_vmem_gather_kernel",
         "launches": launches, "launches_on": "one scorer batch of 8 pairs",
         "exact": True, "max_abs_err": k["max_abs_err"],
-        "ms": k["kernel_ms"], "kernel_ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
+        "ms": k["device_ms_back_to_back"], "ms_is": "device time, back-to-back launches",
+        "device_ms_l2_flushed": k["device_ms_l2_flushed"],
+        "call_ms_with_wrapper": k["call_ms_with_wrapper"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
         "card": smi}]
     for kname, row in attention["bfloat16"].items():
@@ -863,7 +964,8 @@ def main():
             "max_abs_err_fp32": row32["max_abs_err"], "ms_fp32": row32["ms"],
             "plain_ms_fp32": row32["plain_ms"], "bound_ms_fp32": row32["bound_ms"],
             "bound_by_fp32": row32["bound_by"], "bound_ms_fp32_ffma": row32["bound_ms_ffma"],
-            "library_ms_fp32": row32["library_ms"], "card": smi})
+            "library_ms_fp32": row32["library_ms"], "launches_fp32": fp32_main[kname],
+            "launches_fp32_on": fp32_on[kname], "card": smi})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

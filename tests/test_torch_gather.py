@@ -21,15 +21,15 @@ def _bits(x) -> np.ndarray:
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
-def _inputs(seed, h=64, w=96, n=24):
+def _inputs(seed, h=64, w=96, n=24, c=3, p=P):
     rng = np.random.default_rng(seed)
-    img = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
+    img = rng.uniform(0, 1, (h, w, c)).astype(np.float32)
     # float corners, with some past every edge so the clip is exercised
-    topleft = np.stack([rng.uniform(-8, h - P + 8, n),
-                        rng.uniform(-8, w - P + 8, n)]).astype(np.float32)
+    topleft = np.stack([rng.uniform(-8, h - p + 8, n),
+                        rng.uniform(-8, w - p + 8, n)]).astype(np.float32)
     topleft[:, 0] = [0.0, 0.0]
-    topleft[:, 1] = [h - P, w - P]
-    topleft[:, 2] = [h - P + 0.999, w - P + 5.5]
+    topleft[:, 1] = [h - p, w - p]
+    topleft[:, 2] = [h - p + 0.999, w - p + 5.5]
     return img, topleft
 
 
@@ -50,6 +50,25 @@ def test_gather_matches_jax(tile_norm, shape):
     got = gather_patches(torch.from_numpy(img)[None], torch.from_numpy(topleft)[None], P,
                          tile_norm=t_norm)[0]
     assert got.shape == want.shape
+    assert str(got.dtype).replace("torch.", "") == str(want.dtype)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("norm", ["plain", "norm_bf16"])
+@pytest.mark.parametrize("c,p", [(1, 16), (4, 16), (3, 8), (1, 8), (4, 8)],
+                         ids=["c1_p16", "c4_p16", "c3_p8", "c1_p8", "c4_p8"])
+def test_gather_matches_jax_over_channels_and_patch_sizes(c, p, norm):
+    """Channel counts of 1 and 4 and 8x8 patches (the kernel's generic
+    instance on the card): the port bit for bit against the JAX package, in
+    fp32 without normalization and in bf16 with it."""
+    img, topleft = _inputs(3, 40, 57, c=c, p=p)
+    mean = tuple(0.1 * (i + 1) for i in range(c))
+    std = tuple(0.2 + 0.05 * i for i in range(c))
+    jax_norm = None if norm == "plain" else (mean, std, jnp.bfloat16)
+    want = jax_gather_patches(jnp.asarray(img), jnp.asarray(topleft), p, tile_norm=jax_norm)
+    got = gather_patches(torch.from_numpy(img)[None], torch.from_numpy(topleft)[None], p,
+                         tile_norm=None if norm == "plain" else (mean, std, torch.bfloat16))[0]
+    assert got.shape == want.shape == (24, p, p, c)
     assert str(got.dtype).replace("torch.", "") == str(want.dtype)
     np.testing.assert_array_equal(_bits(got), _bits(want))
 

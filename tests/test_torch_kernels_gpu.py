@@ -38,6 +38,45 @@ def test_kernel_matches_plain_on_card():
             assert torch.equal(got, want)
 
 
+def _corners_past_every_edge(gen, m, h, w, p, n):
+    """(M, N) int32 corners on the card, the first 8 of each image past an
+    edge or a corner of the image (the kernel clamps them, as the plain
+    version does)."""
+    ti = torch.randint(0, h - p + 1, (m, n), generator=gen, dtype=torch.int32)
+    tj = torch.randint(0, w - p + 1, (m, n), generator=gen, dtype=torch.int32)
+    ti[:, :8] = torch.tensor([-7, h, 0, h - p, -1, h - p + 1, 3, 5], dtype=torch.int32)
+    tj[:, :8] = torch.tensor([3, 9, -2, w, -9, w - p + 3, w - p + 1, -1], dtype=torch.int32)
+    return ti.cuda(), tj.cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [7, 8, 16, 32])
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_gather_kernel_matches_plain_over_patch_sizes_and_channels_on_card(c, p):
+    """Both instances of the gather kernel (the scorer's P = 16, C = 3 and
+    the generic one) bit for bit against the plain version: an odd width of
+    481, corners past every edge, bf16 out with the normalization fused and
+    fp32 out without it; P = 7 gives patches that are no whole number of
+    16-byte chunks, P = 32 with C = 4 patches of several staged segments
+    (run on a machine with an NVIDIA GPU; see README)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the gather kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(10 * c + p)
+    h, w, m, n = 96, 481, 3, 137
+    img = torch.rand(m, h, w, c, generator=gen).cuda()
+    ti, tj = _corners_past_every_edge(gen, m, h, w, p, n)
+    mean = tuple(0.1 * (i + 1) for i in range(c))
+    inv_std = tuple(1.0 / (0.2 + 0.05 * i) for i in range(c))
+    for norm, dt in (((mean, inv_std), torch.bfloat16), ((None, None), torch.float32)):
+        before = gather_kernel.launches
+        got = gather_kernel.gather_patches(img, ti, tj, p, *norm, out_dtype=dt)
+        torch.cuda.synchronize()
+        assert gather_kernel.launches == before + 1
+        want = gather_kernel.gather_patches_plain(img, ti, tj, p, *norm, out_dtype=dt)
+        assert got.shape == (m, n, p, p, c) and got.dtype == dt
+        assert torch.equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # flash attention kernels
 # ---------------------------------------------------------------------------
@@ -120,6 +159,12 @@ def test_flash_kernels_refuse_what_they_do_not_take():
     h16 = q.half()
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_kernel.flash_forward(h16, h16, h16, mask)
+    # the fp32 forward copies rows by 16-byte cp.async: a token stride of 66
+    # floats is not a multiple of 4
+    wide = torch.zeros(1, 1, 64, 66, device="cuda")[..., :64]
+    one = torch.ones(1, 64, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 4"):
+        flash_kernel.flash_forward(wide, wide, wide, one)
 
 
 def _awkward_mask(case):
@@ -178,6 +223,26 @@ def test_flash_kernels_at_awkward_shapes_on_card(dtype, case):
         # keys masked out get no gradient
         for g in grads[1:]:
             assert float(g.float()[invalid].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["s64", "s192", "one_key_and_empty_tile", "b1_h1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_is_deterministic_at_awkward_shapes_on_card(dtype, case):
+    """Two launches of the forward kernel on the same inputs give the same
+    out and lse bit for bit (no atomics), and finite values even for the
+    row whose only valid key leaves every other key tile empty (run on a
+    machine with an NVIDIA GPU; see README)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the flash kernels have no CPU mode")
+    b, h, s, mask = _awkward_mask(case)
+    q, k, v, _, mask, _, _ = flash_inputs(dtype, b=b, h=h, s=s, seed=4, mask=mask)
+    first = flash_kernel.flash_forward(q, k, v, mask)
+    second = flash_kernel.flash_forward(q, k, v, mask)
+    torch.cuda.synchronize()
+    for a, b2 in zip(first, second):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, b2)
 
 
 @pytest.mark.gpu

@@ -1,5 +1,6 @@
-"""The numerics of the fp32 backward kernels (``csrc/flash_attention_tf32x3.cu``),
-emulated in PyTorch on the CPU.
+"""The numerics of the fp32 flash kernels (``csrc/flash_attention_tf32x3.cu``:
+the forward and the backward's dq and dk/dv kernels), emulated in PyTorch
+on the CPU.
 
 The kernels take fp32-accurate products on the tensor cores as 3xTF32: each
 fp32 operand x is split into big = tf32_rna(x) and small = tf32_rna(x - big)
@@ -7,10 +8,10 @@ fp32 operand x is split into big = tf32_rna(x) and small = tf32_rna(x - big)
 bits), and a product is big.big + big.small + small.big. The tensor cores
 multiply tf32 values exactly (two 11-bit significands fit in fp32's 24), so
 float64 arithmetic on the parts emulates a product. These tests show that
-three terms keep fp32 accuracy, well inside the kernels' fp32 gates (1e-4
-of the largest gradient element) where one TF32 product does not, and why
-the kernels sum each 16-token chunk from zero before adding it to a long
-accumulator. The kernels themselves run only on a card
+three terms keep fp32 accuracy, well inside the kernels' fp32 gates (1e-5
+of the largest output element, 1e-4 of the largest gradient element) where
+one TF32 product does not, and why the kernels sum each 16-token chunk from
+zero before adding it to a long accumulator. The kernels themselves run only on a card
 (``tests/test_torch_kernels_gpu.py``). Inputs are made from a seed with
 numpy.
 """
@@ -24,6 +25,7 @@ import torch
 from vtamiq_tpu_torch.ops import flash_kernel
 
 FP32_GRAD_GATE = 1e-4   # the kernels' gate on fp32 gradients against the plain version
+FP32_OUT_GATE = 1e-5    # the forward's gate on fp32 out and lse against the plain version
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -177,3 +179,105 @@ def test_chunked_accumulation_avoids_the_truncation_drift():
         chunked = chunked + part
     assert err(long_acc) > 1e-5
     assert err(chunked) <= 2e-6
+
+
+def mma_sum(a, b, acc=None):
+    """acc + a @ b as the kernels take it on the tensor cores: the depth in
+    steps of 8 (one mma.sync), each step's three products (small.big,
+    big.small, big.big, in the kernels' order) added to the fp32
+    accumulator with truncation."""
+    (ab, as_), (bb, bs) = split(a), split(b)
+    if acc is None:
+        acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for k0 in range(0, a.shape[-1], 8):
+        d = slice(k0, k0 + 8)
+        for u, w in ((as_, bb), (ab, bs), (ab, bb)):
+            step = torch.matmul(u[..., d].double(), w[..., d, :].double())
+            acc = torch.from_numpy(round_toward_zero((acc.double() + step).numpy()))
+    return acc
+
+
+def forward_tf32x3(q, k, v, mask, chunked=True):
+    """The forward kernel's arithmetic on (B, H, S, D) fp32 inputs: S of
+    each 32-key tile in 3xTF32, an online softmax over the tiles with p
+    unrounded in fp32, and P V in 16-key chunks, each summed from zero and
+    added to O in fp32 (``chunked``) or added into O straight away, as the
+    tensor cores would with one long accumulator. q may have fewer rows
+    than k and v. Returns (out, lse)."""
+    b, h, s, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    m = torch.full((b, h, s), flash_kernel.NEG_INF, dtype=torch.float32)
+    l = torch.zeros((b, h, s), dtype=torch.float32)
+    o = torch.zeros((b, h, s, d), dtype=torch.float32)
+    for t0 in range(0, k.shape[2], 32):
+        x = mma_sum(q, k[:, :, t0:t0 + 32].transpose(-1, -2)) * scale
+        x = x.masked_fill(~mask[:, None, None, t0:t0 + 32], flash_kernel.NEG_INF)
+        m_new = torch.maximum(m, x.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(x - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None]
+        m = m_new
+        for c0 in (t0, t0 + 16):
+            pc, vc = p[..., c0 - t0:c0 - t0 + 16], v[:, :, c0:c0 + 16]
+            o = o + mma_sum(pc, vc) if chunked else mma_sum(pc, vc, o)
+    l = l.clamp_min(1e-30)
+    return o / l[..., None], m + torch.log(l)
+
+
+def exact_forward(q, k, v, mask):
+    """(out, lse) of masked softmax attention in float64."""
+    logits = torch.matmul(q.double(), k.double().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    logits = logits.masked_fill(~mask[:, None, None, :], flash_kernel.NEG_INF)
+    return torch.matmul(torch.softmax(logits, -1), v.double()), torch.logsumexp(logits, -1)
+
+
+def fp32_forward_mask(b, s):
+    """A padded tail, a 32-key tile with no valid key after valid ones, and
+    one before any valid key."""
+    mask = torch.ones(b, s, dtype=torch.bool)
+    mask[:, s - 37:] = False
+    mask[-1, 64:96] = False
+    mask[0, :32] = False
+    return mask
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_forward_in_tf32x3_is_inside_the_fp32_gate(seed):
+    """The emulated forward at (2, 2, 192, 64) with a masked tail and fully
+    masked key tiles: out and lse within a quarter of the 1e-5 gate of the
+    plain fp32 version and of the float64 result (they measure 1.0e-6 to
+    1.7e-6, where the plain version is 5e-7 to 9e-7 from float64), p never
+    NaN; one TF32 product past the gate."""
+    q, k, v = tiles(seed, (2, 2, 192, 64), 3)
+    mask = fp32_forward_mask(2, 192)
+    out, lse = forward_tf32x3(q, k, v, mask)
+    plain_out, plain_lse = flash_kernel.flash_forward_plain(q, k, v, mask)
+    exact_out, exact_lse = exact_forward(q, k, v, mask)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())
+    for want_out, want_lse in ((plain_out, plain_lse), (exact_out, exact_lse)):
+        assert rel_err(out, want_out) <= FP32_OUT_GATE / 4
+        lse_scale = max(1.0, float(want_lse.abs().max()))
+        lse_err = float((lse.double() - want_lse.double()).abs().max())
+        assert lse_err <= FP32_OUT_GATE / 4 * lse_scale
+    logits = mm_tf32(q, k.transpose(-1, -2)) / math.sqrt(64)
+    logits = logits.masked_fill(~mask[:, None, None, :], flash_kernel.NEG_INF)
+    tf32_out = torch.matmul(tf32_rna(torch.softmax(logits, -1).float()).double(),
+                            tf32_rna(v).double())
+    assert rel_err(tf32_out, exact_out) > FP32_OUT_GATE
+
+
+def test_forward_chunked_accumulation_avoids_the_truncation_drift():
+    """16 queries over the 5000-patch keys (5009 valid of 5056), as
+    the forward kernel walks them: adding every mma.sync of P V into O with
+    truncation drifts out past the 1e-5 gate; summing each 16-key chunk
+    from zero and adding it in fp32, as the kernel does, stays within
+    2e-6 of the float64 result."""
+    q, k, v = tiles(3, (1, 1, 16, 64), 1)[0], *tiles(4, (1, 1, 5056, 64), 2)
+    mask = torch.zeros(1, 5056, dtype=torch.bool)
+    mask[:, :5009] = True
+    exact = exact_forward(q, k, v, mask)[0]
+    chunked = forward_tf32x3(q, k, v, mask)[0]
+    long = forward_tf32x3(q, k, v, mask, chunked=False)[0]
+    assert rel_err(chunked, exact) <= 2e-6
+    assert rel_err(long, exact) > FP32_OUT_GATE

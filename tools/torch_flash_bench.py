@@ -2,7 +2,7 @@
 the 5000-patch shapes, beside PyTorch's scaled_dot_product_attention.
 
     python3 tools/torch_flash_bench.py [--root DIR] [--dtype bfloat16|float32]
-                                       [--reps 10] [--profile]
+                                       [--rows 16] [--reps 10] [--profile]
 
 ``--root`` imports ``vtamiq_tpu_torch`` from another checkout, such as a
 parent commit unpacked with ``git archive`` into ``.ab_parent/`` (which
@@ -12,8 +12,8 @@ Prints JSON lines:
 - build: the kernels' build time and nvcc's ``-Xptxas -v`` lines;
 - time: medians of CUDA-event timed launches of flash_forward,
   flash_backward_fused and the split backward's flash_backward_dq and
-  flash_backward_dkv at q, k, v (16, 12, 5056, 64) in ``--dtype`` (TF32 off
-  for float32), 5009 valid keys, beside scaled_dot_product_attention's
+  flash_backward_dkv at q, k, v (``--rows``, 12, 5056, 64) in ``--dtype``
+  (TF32 off for float32), 5009 valid keys, beside scaled_dot_product_attention's
   forward and backward on the same tensors (the yardstick; the port never
   calls it), with the card's name and power limit;
 - profile (with ``--profile``): torch.profiler's device time per kernel
@@ -34,7 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-ROWS, HEADS, S_VALID, HEAD_DIM = 16, 12, 5009, 64
+HEADS, S_VALID, HEAD_DIM = 12, 5009, 64
 S_PAD = -(-S_VALID // 64) * 64
 
 
@@ -65,14 +65,14 @@ def sdpa_backend(dtype):
     return sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION])
 
 
-def inputs(fk, dtype, seed=0):
+def inputs(fk, dtype, rows, seed=0):
     """(B, H, S, D) views of (B, S, H, D) tensors, as the model builds
     them, keys past the 5009 valid ones masked; the backward's do, lse and
     delta from the plain forward."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    mask = torch.zeros(ROWS, S_PAD, dtype=torch.bool, device="cuda")
+    mask = torch.zeros(rows, S_PAD, dtype=torch.bool, device="cuda")
     mask[:, :S_VALID] = True
-    q, k, v, do = (torch.randn(ROWS, S_PAD, HEADS, HEAD_DIM, generator=gen, device="cuda")
+    q, k, v, do = (torch.randn(rows, S_PAD, HEADS, HEAD_DIM, generator=gen, device="cuda")
                    .to(dtype).transpose(1, 2) for _ in range(4))
     out, lse = fk.flash_forward_plain(q, k, v, mask)
     return q, k, v, do, mask, lse, fk.delta_of(do, out)
@@ -82,6 +82,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
+    ap.add_argument("--rows", type=int, default=16,
+                    help="encoder rows (two per pair): 16 in training at batch 8, 4 in "
+                    "the scorer's fp32 check")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
@@ -102,7 +105,7 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    q, k, v, do, mask, lse, delta = inputs(fk, getattr(torch, args.dtype))
+    q, k, v, do, mask, lse, delta = inputs(fk, getattr(torch, args.dtype), args.rows)
     bwd = (q, k, v, do, lse, delta, mask)
     ms = {"flash_fwd": median_ms(lambda: fk.flash_forward(q, k, v, mask), reps=args.reps),
           "flash_bwd_fused": median_ms(lambda: fk.flash_backward_fused(*bwd), reps=args.reps),
@@ -117,7 +120,7 @@ def main():
         out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=attn_mask)
     ms["sdpa_bwd"] = median_ms(
         lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True), reps=args.reps)
-    emit({"time_ms": ms, "shape": f"({ROWS}, {HEADS}, {S_PAD}, {HEAD_DIM}) {args.dtype}, "
+    emit({"time_ms": ms, "shape": f"({args.rows}, {HEADS}, {S_PAD}, {HEAD_DIM}) {args.dtype}, "
           f"{S_VALID} valid keys", "root": args.root, "card": card})
     if args.profile:
         from torch.profiler import ProfilerActivity, profile

@@ -1,27 +1,33 @@
-// Flash attention's backward in fp32 for Hopper (sm_90a): fp32-accurate
-// products on the tensor cores as 3xTF32, on register-resident mma.sync tiles.
+// Flash attention in fp32 for Hopper (sm_90a): fp32-accurate products on the
+// tensor cores as 3xTF32, on register-resident mma.sync tiles.
 //
 // Replaces, for fp32 inputs, the Pallas TPU kernels of vtamiq_tpu/ops/attention.py:
+//   flash_fwd_tf32x3      <- _flash_fwd_kernel (_flash_forward)
 //   flash_bwd_dq_tf32x3   <- _flash_bwd_dq_kernel (_flash_backward, fused=False)
 //   flash_bwd_dkv_tf32x3  <- _flash_bwd_dkv_kernel (_flash_backward, fused=False)
 //   both, one after the other
 //                         <- _flash_bwd_fused_kernel (_flash_backward_fused)
-// bf16 inputs take flash_attention_sm90.cu, whose pair has the same roles.
+// bf16 inputs take flash_attention_sm90.cu, whose kernels have the same roles.
 //
 // The function, per (batch row, head), over S tokens of D = 64 with a (B, S)
-// key-validity mask, scale = 1/sqrt(D), and lse, delta given:
+// key-validity mask and scale = 1/sqrt(D):
 //   logit = fl(q . k) * scale, invalid keys at NEG_INF = -1e30
-//   p = exp(logit - lse), dp = do v^T, ds = p (dp - delta) scale
-//   dq = ds k, dk = ds^T q, dv = p^T do
+//   forward: out = softmax(logit) v, lse = logsumexp(logit), with an online
+//     softmax (running maximum m, running sum l clamped at 1e-30 at the end)
+//   backward, given lse and delta:
+//     p = exp(logit - lse), dp = do v^T, ds = p (dp - delta) scale
+//     dq = ds k, dk = ds^T q, dv = p^T do
 // p and ds stay fp32 (no rounding to a storage type), as in the Pallas
-// kernels and the plain version for fp32. Masked keys get p = 0 exactly, so
-// no gradient.
+// kernels and the plain versions for fp32. NEG_INF is finite: a key tile
+// with no valid key gives exp(0) terms that the next valid tile's correction
+// exp(-1e30 - m) wipes out, never 0 * inf = NaN; in the backward masked keys
+// get p = 0 exactly, so no gradient.
 //
 // Bound: operations. At the 5000-patch shapes (16 rows, 12 heads, 5009 valid
-// of S = 5056, D = 64) dq is 3 products, 1.85 TFLOP, and dk/dv 4, 2.47 TFLOP,
-// against 0.1 to 0.2 GB of inputs and outputs. fp32 FMAs on the CUDA cores
-// peak at 67 TFLOP/s; 3xTF32 on the tensor cores at a third of the 495
-// TFLOP/s TF32 rate, about 165.
+// of S = 5056, D = 64) the forward is 2 products, 1.23 TFLOP, dq 3, 1.85
+// TFLOP, and dk/dv 4, 2.47 TFLOP, against 0.1 to 0.2 GB of inputs and
+// outputs. fp32 FMAs on the CUDA cores peak at 67 TFLOP/s; 3xTF32 on the
+// tensor cores at a third of the 495 TFLOP/s TF32 rate, about 165.
 //
 // Design:
 // - Products are mma.sync.m16n8k8 (tf32 in, fp32 accumulate). Each fp32
@@ -29,29 +35,32 @@
 //   small = tf32_rna(x - big), and each product is big.big + big.small +
 //   small.big (the small.small term, about 2^-22 of the product, is
 //   dropped): fp32 accuracy at a third of the TF32 rate.
-// - dq: a CTA owns 128 query rows (Q and dO resident in shared memory) and
-//   streams 32-key tiles of K, V and the mask: S = Q K^T, dP = dO V^T,
-//   dQ += dS K. dk/dv: a CTA owns 128 keys (K, V resident) and streams
-//   32-query tiles of Q, dO, lse and delta: S^T = K Q^T, dP^T = V dO^T,
-//   dV += P^T dO, dK += dS^T Q, so P^T and dS^T come out of the
-//   accumulators already as A operands. 4 warps, 32 rows each as two
-//   16-row strips, so every B fragment feeds two strips. p and ds need no
-//   row reduction, so a tile can be cut along tokens: the dq kernel takes S
-//   and dP of a whole 32-key tile (each Q and dO fragment is split once a
-//   tile), the dk/dv kernel, whose two accumulators fill half its
-//   registers, 16 queries at a time.
-// - Accumulators (dq, or dk and dv), S and dP live in registers. The
-//   tensor cores truncate when they add, so each 16-token chunk's share of
-//   dq, dk or dv is summed from zero and added to the accumulator in fp32:
-//   the long sums round to nearest. An accumulator tile's columns 2t, 2t+1
-//   become the A operand's depth slots t, t+4 (t = lane % 4) with no
-//   shuffle: the next product's B operand reads its depth rows in the same
-//   order (k0 + 2t, k0 + 2t + 1).
+// - Forward and dq: a CTA owns 128 query rows (Q, and dO for dq, resident
+//   in shared memory) and streams 32-key tiles of K, V and the mask. The
+//   forward takes S = Q K^T for the whole tile, the online softmax in
+//   registers (row maxima over the quad's 4 lanes by shuffles; each lane
+//   sums p over its own columns, and the quad's sums are added at the end),
+//   then O += P V. dq: S = Q K^T, dP = dO V^T, dQ += dS K. dk/dv: a CTA
+//   owns 128 keys (K, V resident) and streams 32-query tiles of Q, dO, lse
+//   and delta: S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q, so
+//   P^T and dS^T come out of the accumulators already as A operands. 4
+//   warps, 32 rows each as two 16-row strips, so every B fragment feeds two
+//   strips. The forward and dq take S (and dP) of a whole 32-key tile, so
+//   each Q and dO fragment is split once a tile; the dk/dv kernel, whose
+//   two accumulators fill half its registers, 16 queries at a time.
+// - Accumulators (out, dq, or dk and dv), S, P and dP live in registers.
+//   The tensor cores truncate when they add, so each 16-token chunk's share
+//   of an accumulator is summed from zero and added to it in fp32: the long
+//   sums round to nearest. An accumulator tile's columns 2t, 2t+1 become
+//   the A operand's depth slots t, t+4 (t = lane % 4) with no shuffle: the
+//   next product's B operand reads its depth rows in the same order
+//   (k0 + 2t, k0 + 2t + 1).
 // - Streamed tiles arrive by 16-byte cp.async, double-buffered: the copy of
 //   tile t + 1 runs under the products of tile t. Shared rows are 64 floats
 //   at a 68-float pitch: the fragment reads of one warp (rows g, columns t,
-//   or rows 2t, 2t + 1, columns g) fall in 32 different banks. A CTA holds
-//   102 KB of shared memory, so 2 CTAs of 4 warps fit on an SM.
+//   or rows 2t, 2t + 1, columns g) fall in 32 different banks. The backward
+//   kernels hold 102 KB of shared memory, the forward 68 KB; registers
+//   allow 2 CTAs of 4 warps an SM.
 // - No atomics: every output element is written once, by one CTA, so
 //   repeated launches give the same bits.
 //
@@ -72,6 +81,7 @@ constexpr int kPitch = kD + 4;           // shared row pitch in floats (272 byte
 constexpr int kChunks = kD * 4 / 16;     // 16-byte chunks of one row
 constexpr int kTileElems = kT * kPitch;
 constexpr float kNegInf = -1e30f;
+constexpr float kMinL = 1e-30f;         // floor of the softmax's row sum
 
 constexpr int kWarps = 4;                // a CTA of 4 warps ...
 constexpr int kM = 2;                    // ... of two 16-row strips each
@@ -257,6 +267,138 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* src, long lon
     const int r = c / kChunks, ch = c % kChunks;
     const bool ok = row0 + r < S;
     cp_async16(dst + r * kPitch + ch * 4, src + (ok ? row0 + r : 0) * ss + ch * 4, ok);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward: a CTA owns 128 query rows and walks the key tiles, 32 keys a step
+// ---------------------------------------------------------------------------
+
+constexpr size_t kFwdSmem = (kResidentElems + 4 * kTileElems) * sizeof(float) + 2 * kT;
+
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                 float* __restrict__ out, float* __restrict__ lse, View vq, View vk, View vv,
+                 View vo, int H, int S, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sK = sQ + kResidentElems;  // [2][kT][kPitch]
+  float* sV = sK + 2 * kTileElems;  // [2][kT][kPitch]
+  uint8_t* sMask = reinterpret_cast<uint8_t*>(sV + 2 * kTileElems);  // [2][kT]
+
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int row0 = w * kM * 16;  // the warp's first row within the CTA's
+  const int nk = S / kT;
+  const float* kp = k + b * vk.sb + h * vk.sh;
+  const float* vp = v + b * vv.sb + h * vv.sh;
+  const uint8_t* mp = mask + static_cast<long long>(b) * S;
+
+  auto load_kv = [&](int kt, int buf) {
+    copy_rows<kT>(sK + buf * kTileElems, kp, vk.ss, kt * kT, S);
+    copy_rows<kT>(sV + buf * kTileElems, vp, vv.ss, kt * kT, S);
+    copy_bytes(sMask + buf * kT, mp + kt * kT, kT, 0);
+  };
+  copy_rows<kRows>(sQ, q + b * vq.sb + h * vq.sh, vq.ss, q0, S);
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // the online softmax of the thread's rows g and g + 8 of each strip: the
+  // row's running maximum of the logits (the same in the quad's 4 lanes),
+  // and the sum of exp(logit - m) over the lane's own columns
+  float mrow[kM][2], lsum[kM][2];
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mrow[m][r] = kNegInf;
+      lsum[m][r] = 0.0f;
+    }
+  }
+  float acc[kM][8][4];
+  zero(acc);
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < nk) load_kv(kt + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile kt (and Q) have landed
+    __syncthreads();
+    const float* tk = sK + buf * kTileElems;
+    const float* tv = sV + buf * kTileElems;
+    const uint8_t* mk = sMask + buf * kT;
+
+    float s[kM][kT / 8][4];  // S of the whole tile, so each Q fragment is split once a tile
+    zero(s);
+    mma_nt(s, sQ, row0, tk, 0, lane);  // S = Q K^T
+    bool valid[kT / 8][2];
+#pragma unroll
+    for (int n = 0; n < kT / 8; ++n) {
+      const int col = 8 * n + 2 * (lane & 3);
+      valid[n][0] = mk[col] != 0;
+      valid[n][1] = mk[col + 1] != 0;
+    }
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      float mx[2] = {mrow[m][0], mrow[m][1]};
+#pragma unroll
+      for (int n = 0; n < kT / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = valid[n][e & 1] ? __fmul_rn(s[m][n][e], scale) : kNegInf;
+          s[m][n][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // the row's maximum over the quad's columns
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = expf(mrow[m][r] - mx[r]);
+        mrow[m][r] = mx[r];
+        lsum[m][r] *= corr[r];
+      }
+#pragma unroll
+      for (int n = 0; n < kT / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s[m][n][e] - mx[e >> 1]);
+          s[m][n][e] = p;  // P, unrounded fp32
+          lsum[m][e >> 1] += p;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][j][e] *= corr[e >> 1];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kT / 16; ++c) mma_nn16(acc, s, 2 * c, tv, 16 * c, lane);  // O += P V
+    __syncthreads();  // buffer buf is refilled in the next step
+  }
+
+  // out = O / l and lse = m + log l, with l (the quad's 4 sums) clamped at 1e-30
+  const long long vec = (static_cast<long long>(b) * H + h) * S;
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = lsum[m][r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      l = fmaxf(l, kMinL);
+      const int row = q0 + row0 + 16 * m + (lane >> 2) + 8 * r;
+      if ((lane & 3) == 0 && row < S) lse[vec + row] = mrow[m][r] + logf(l);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[m][j][2 * r] /= l;
+        acc[m][j][2 * r + 1] /= l;
+      }
+    }
+    store_strip(out + b * vo.sb + h * vo.sh, vo.ss, q0 + row0 + 16 * m, S, acc[m], lane);
   }
 }
 
@@ -479,9 +621,32 @@ bool aligned(const void* p, const View& vw) {
 // (B, H, S, D) views given by their element strides (batch, head, token;
 // multiples of 4; the D axis contiguous; 16-byte aligned); mask is (B, S)
 // bytes (0 = invalid key); lse and delta are (B, H, S) contiguous fp32; all
-// 16-byte aligned. S % 64 == 0 and D == 64. strides: q, k, v, do, dq, dk, dv
-// (21 values); an entry reads only the slots of the outputs it writes. Each
-// returns cudaGetLastError() after its launches (0 = success).
+// 16-byte aligned. S % 64 == 0 and D == 64. The backward's strides: q, k, v,
+// do, dq, dk, dv (21 values); an entry reads only the slots of the outputs
+// it writes. Each returns cudaGetLastError() after its launches (0 =
+// success).
+
+// the forward: flash_fwd_tf32x3. lse is written, not read; strides: q, k,
+// v, out (12 values)
+extern "C" int vtamiq_flash_fwd_f32(const void* q, const void* k, const void* v,
+                                    const void* mask, void* out, void* lse,
+                                    const long long* strides, int B, int H, int S, int D,
+                                    void* stream) {
+  const View vq = view_at(strides, 0), vk = view_at(strides, 1), vv = view_at(strides, 2),
+             vo = view_at(strides, 3);
+  if (!shapes_ok(B, H, S, D) || !aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) ||
+      !aligned(out, vo) || !vectors_aligned(mask, lse, lse)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = allow_smem(flash_fwd_tf32x3, kFwdSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + kRows - 1) / kRows, H, B);
+  flash_fwd_tf32x3<<<grid, kThreads, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<float*>(out), static_cast<float*>(lse), vq,
+      vk, vv, vo, H, S, 1.0f / sqrtf(static_cast<float>(D)));
+  return static_cast<int>(cudaGetLastError());
+}
 
 // the split backward's dq pass: flash_bwd_dq_tf32x3
 extern "C" int vtamiq_flash_bwd_dq_f32(const void* q, const void* k, const void* v,

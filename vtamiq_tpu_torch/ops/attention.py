@@ -98,9 +98,11 @@ def flash_attention(q, k, v, mask: Optional[torch.Tensor] = None, *,
                     fused_bwd: bool = True) -> torch.Tensor:
     """Masked softmax attention over (B, S, H, D) tensors with an optional
     (B, S) key mask, through the flash kernels (their plain versions for
-    CPU tensors). ``fused_bwd`` picks the fused backward (in bf16 the
-    register-resident kernels of ``flash_attention_sm90.cu``) over the split
-    dq + dkv pair of ``flash_attention.cu``. Without gradients to record, no
+    CPU tensors). ``fused_bwd`` picks the fused backward (one call that
+    launches the dq and the dk/dv kernel of the dtype) over the split
+    backward (one call each). Both run the same kernels, of
+    ``flash_attention_sm90.cu`` in bf16 and ``flash_attention_tf32x3.cu`` in
+    fp32, so they give the same bits. Without gradients to record, no
     residuals are kept."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, mask, fused_bwd)

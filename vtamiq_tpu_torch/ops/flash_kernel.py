@@ -14,9 +14,10 @@ The kernels, per dtype:
   cp.async pipelining) for all four: ``flash_fwd_sm90``, and the backward
   as a query-major dq kernel (``flash_bwd_dq_sm90``) and a key-major dk/dv
   kernel (``flash_bwd_dkv_sm90``).
-- fp32: ``csrc/flash_attention.cu`` for the forward (CUDA-core FMAs), and
-  ``csrc/flash_attention_tf32x3.cu`` for the backward: the same dq and
-  dk/dv roles with fp32-accurate products on the tensor cores as 3xTF32.
+- fp32: ``csrc/flash_attention_tf32x3.cu`` for all four, with the same
+  roles (``flash_fwd_tf32x3``, ``flash_bwd_dq_tf32x3``,
+  ``flash_bwd_dkv_tf32x3``) and fp32-accurate products on the tensor cores
+  as 3xTF32.
 
 The split backward (``flash_backward_dq``, ``flash_backward_dkv``) launches
 one kernel of the pair each; the fused backward launches both and counts as
@@ -25,12 +26,12 @@ backward adds no partials with atomics (7 products a tile, where the fused
 Pallas kernel does 5), so it gives the same bits on every run. Tensors are
 (B, H, S, D) views: any batch, head and token strides, a contiguous D axis,
 so the model's (B, S, H, D) projections pass as ``.transpose(1, 2)`` views
-without a copy. The kernels that copy rows by 16-byte cp.async (all but the
-fp32 forward) also need 16-byte aligned data and strides that are 16 bytes'
-multiples. ``mask`` is (B, S) bool, False = invalid key; ``lse`` and
-``delta`` are (B, H, S) fp32. The kernels take bf16 or fp32 with D = 64 and
-S a multiple of ``BLOCK`` (the caller pads, ``ops/attention.py``); the plain
-versions take any S and D.
+without a copy. Every kernel copies rows by 16-byte cp.async, so it also
+needs 16-byte aligned data and strides that are 16 bytes' multiples.
+``mask`` is (B, S) bool, False = invalid key; ``lse`` and ``delta`` are
+(B, H, S) fp32. The kernels take bf16 or fp32 with D = 64 and S a multiple
+of ``BLOCK`` (the caller pads, ``ops/attention.py``); the plain versions
+take any S and D.
 
 Each wrapper runs its kernel for tensors on the card and its plain version
 for tensors on the CPU; there is no other fallback. ``launches`` counts each
@@ -46,7 +47,7 @@ from typing import Tuple
 import torch
 
 NEG_INF = -1e30
-BLOCK = 64        # the kernels' query and key tile (tokens)
+BLOCK = 64        # the kernels take S a multiple of this many tokens
 HEAD_DIM = 64     # the only head dimension the kernels are built for
 # bytes of fp32 (S, S) temporaries per chunk of batch rows in the plain versions
 _PLAIN_CHUNK_BYTES = 2 * 1024**3
@@ -103,11 +104,10 @@ def _check_kernel(b, h, s, d, tensors, vectors):
 
 
 def _check_aligned(tensors, vectors):
-    """The kernels that copy 16-byte row chunks (the bf16 kernels and the
-    fp32 backward): every (B, H, S, D) tensor needs 16-byte aligned data
-    and batch, head and token strides that are multiples of 16 bytes (8
-    bf16 or 4 fp32 elements); the (B, S) and (B, H, S) vectors 16-byte
-    aligned data."""
+    """Every kernel copies 16-byte row chunks: every (B, H, S, D) tensor
+    needs 16-byte aligned data and batch, head and token strides that are
+    multiples of 16 bytes (8 bf16 or 4 fp32 elements); the (B, S) and
+    (B, H, S) vectors 16-byte aligned data."""
     for t in tensors:
         n = 16 // t.element_size()
         if t.data_ptr() % 16 or any(st % n for st in t.stride()[:3]):
@@ -213,8 +213,7 @@ def flash_forward(q, k, v, mask) -> Tuple[torch.Tensor, torch.Tensor]:
     b, h, s, d = _check(q, k, v, mask)
     _check_kernel(b, h, s, d, (q, k, v), (mask,))
     out = torch.empty_like(q)
-    if q.dtype == torch.bfloat16:
-        _check_aligned((q, k, v, out), (mask,))
+    _check_aligned((q, k, v, out), (mask,))
     from .._build import load_library
     lib = load_library()
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
