@@ -38,16 +38,34 @@ Phases, each printing one JSON line:
                  torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
                  and, reported beside it, with the flag off; pairs/s at
                  batch 8.
-6. server      — ScoringServer on 127.0.0.1: 4 concurrent /score, one /compare,
+6. weighted_caps — BASELINE configs 2 and 3 at full width: weighted CAPS
+                 (diff weight 1, uniform weight 0.1, PERTURBED cells) with
+                 the SSIM diff map (config 2 scoring) and the MAGNITUDE one
+                 (config 3 training). Gates: the diff maps of the 8 pairs,
+                 card against CPU in fp32 (relative error <= 1e-5); the
+                 card's cell counts and corners for the same 8 items
+                 against the CPU's on the card's probability maps and the
+                 same draws (counts equal, corners within 1e-3 px); fp32 q
+                 of 2 pairs, card against CPU on the same card-sampled
+                 corners, TF32 off (|dq| <= 1e-3); 3 config 3 train steps
+                 in bf16 (finite loss, one gather launch each). Reported:
+                 pairs/s of the config 2 and the uniform scorer at batch 8,
+                 trained pairs/s, the weighted sampling's time per batch
+                 (host clock and CUDA events) and its launches
+                 (torch.profiler), the gather launches of both scorers, and
+                 SROCC, KROCC, PLCC and RMSE of the config 2 scorer over 96
+                 graded synthetic pairs against their synthetic quality
+                 (random weights: context only).
+7. server      — ScoringServer on 127.0.0.1: 4 concurrent /score, one /compare,
                  one /healthz, all answered with 200 and finite values.
-7. scorer_5000p — VTAMIQScorer(patch_count=5000), batch 8, bf16: finite
+8. scorer_5000p — VTAMIQScorer(patch_count=5000), batch 8, bf16: finite
                  scores through 5 flash-forward launches and 1 gather launch;
                  pairs/s; at batch 2 in fp32 (TF32 off) the forward with
                  flash attention against the plain quadratic forward on the
                  same patches (|dq| <= 1e-3), each timed (median of 3 calls),
                  with the fp32 flash-forward launches counted in the timed
                  calls.
-8. train_5000p — make_train_step at batch 8, bf16, AdamW(5e-5, wd 0.01),
+9. train_5000p — make_train_step at batch 8, bf16, AdamW(5e-5, wd 0.01),
                  loss weights (1, 1, 1): 1 warm-up and 3 timed steps (5 flash
                  forward and 5 fused backward launches each), one timed step
                  with the split backward (5 dq and 5 dkv launches); in fp32 at
@@ -56,7 +74,7 @@ Phases, each printing one JSON line:
                  step through plain attention (loss 1e-5), and the encoder's
                  gradient through each (every tensor 1e-3 relative), with
                  the flash launches of each fp32 run reported.
-9. kernels     — one JSON object per kernel: time, bound, plain time,
+10. kernels    — one JSON object per kernel: time, bound, plain time,
                  library time in bf16 and in fp32 (the fp32 bound at the
                  3xTF32 rate, beside it at the FFMA rate), launches on the
                  main path and in the fp32 runs.
@@ -88,11 +106,15 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from vtamiq_tpu_torch import _build  # noqa: E402
+from vtamiq_tpu_torch.data import synth  # noqa: E402
 from vtamiq_tpu_torch.inference import VTAMIQScorer  # noqa: E402
 from vtamiq_tpu_torch.models.configs import VTAMIQConfig, get_vit_config  # noqa: E402
 from vtamiq_tpu_torch.models.vtamiq import init_vtamiq_params, vtamiq_forward  # noqa: E402
 from vtamiq_tpu_torch.ops import flash_kernel, gather_kernel  # noqa: E402
+from vtamiq_tpu_torch.ops import sampling  # noqa: E402
 from vtamiq_tpu_torch.ops.attention import make_attention_fn  # noqa: E402
+from vtamiq_tpu_torch.ops.correlations import compute_correlations  # noqa: E402
+from vtamiq_tpu_torch.ops.extraction import get_iqa_patches  # noqa: E402
 from vtamiq_tpu_torch.ops.sampling import PatchSampler  # noqa: E402
 from vtamiq_tpu_torch.serving import ScoringServer  # noqa: E402
 from vtamiq_tpu_torch.train.optim import Optimizer, build_freeze_mask  # noqa: E402
@@ -316,7 +338,7 @@ def phase_kernel():
 
 
 # ---------------------------------------------------------------------------
-# 4. scorer
+# 5. scorer
 # ---------------------------------------------------------------------------
 
 def synthetic_pairs(n, seed=SEED):
@@ -436,7 +458,217 @@ def bf16_tokens_vs_fp32(refs, dists):
 
 
 # ---------------------------------------------------------------------------
-# 5. server
+# 6. weighted CAPS: BASELINE configs 2 and 3
+# ---------------------------------------------------------------------------
+
+CARD = "cuda"
+DIFF_REL_TOL = 1e-5    # card vs CPU diff maps in fp32: summation order only
+CORNER_TOL = 1e-3      # card vs CPU corners, px, on the same maps and draws
+SYNTH_REFS, SYNTH_LEVELS = 4, 2   # x 12 distortion types = 96 graded pairs
+
+
+def weighted_sampler(diff_type):
+    """The weighted-CAPS sampler of BASELINE config 2 (SSIM) and config 3
+    (MAGNITUDE), as the JAX package's bench and parity runs build it."""
+    return PatchSampler(diff_weight=1.0, uniform_weight=0.1,
+                        grid_type=sampling.GRID_TYPE_PERTURBED, diff_type=diff_type)
+
+
+def _max_rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def synthetic_graded_set(seed=SEED):
+    """96 pairs: 4 procedural references, each under the 12 distortion
+    types of the synthetic bank at 2 severities, with the latent quality
+    of each as its MOS."""
+    rng = np.random.default_rng(seed)
+    gains = synth._type_gains(rng, len(synth.DISTORTION_BANK))
+    refs, dists, mos = [], [], []
+    for _ in range(SYNTH_REFS):
+        ref = synth.make_base_image(rng, H, W)
+        for t, gain in enumerate(gains):
+            for level in range(1, SYNTH_LEVELS + 1):
+                refs.append(ref)
+                dists.append(synth.apply_distortion(rng, ref, t, level, SYNTH_LEVELS,
+                                                    gain).astype(np.float32))
+                mos.append(synth.severity_to_quality(rng, level, SYNTH_LEVELS, gain))
+    return refs, dists, np.asarray(mos)
+
+
+def sampling_launches(fn):
+    """Device kernels and copies that one call of ``fn`` runs, by
+    torch.profiler; None where the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        return None
+    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in device)
+    return {"kernels": len(device) - copies, "copies": copies}
+
+
+def phase_weighted_caps(card, refs, dists):
+    cfg = VTAMIQConfig(vit=get_vit_config(num_keep_layers=6, num_extra_tokens=8))
+    raw = torch.from_numpy(np.stack([np.stack([r, d]) for r, d in zip(refs, dists)]))
+    raw_card = raw.to(CARD)
+    samplers = {"ssim": weighted_sampler(sampling.DIFF_TYPE_SSIM),
+                "magnitude": weighted_sampler(sampling.DIFF_TYPE_MAGNITUDE)}
+    _, sh, sw = sampling._cell_layout(H, W, P, N)
+    gen = torch.Generator().manual_seed(SEED)
+    out = {"phase": "weighted_caps", "config": f"ViT-B/16 6 layers, 8 registers, {N} "
+           f"patches, {H}x{W}, batch {PAIRS}; sampler diff weight 1, uniform weight 0.1, "
+           f"PERTURBED cells ({sh}x{sw}); config 2 SSIM, config 3 MAGNITUDE",
+           "tolerances": {"diff_rel": DIFF_REL_TOL, "corner_px": CORNER_TOL,
+                          "fp32_q": FP32_Q_TOL}, "card": card}
+
+    # gates 1 and 2: diff maps, then counts and corners on the card's maps
+    gates = {}
+    for name, s in samplers.items():
+        diff = s.compute_diff(raw_card)
+        diff_err = _max_rel(diff.cpu(), s.compute_diff(raw))
+        prob = s.sample_prob(H, W, diff)
+        draws = sampling.WeightedDraws.stack([sampling.weighted_draws(gen, sh * sw, N)
+                                              for _ in range(PAIRS)])
+        counts = sampling.weighted_counts(prob, draws.gumbel.to(CARD), H, W, P, N).cpu()
+        corners = sampling.weighted_positions(prob, draws.to(CARD), H, W, P, N).cpu()
+        prob_cpu = prob.cpu()
+        want_counts = sampling.weighted_counts(prob_cpu, draws.gumbel, H, W, P, N)
+        want_corners = sampling.weighted_positions(prob_cpu, draws, H, W, P, N)
+        gates[name] = {"diff_rel_err": diff_err,
+                       "counts_equal": bool(torch.equal(counts, want_counts)),
+                       "cells_differing": int((counts != want_counts).sum()),
+                       "corner_max_err_px": float((corners - want_corners).abs().max()),
+                       "counts_sum": counts.sum(-1).tolist()}
+    out["gates"] = gates
+    for name, g in gates.items():
+        if not (g["diff_rel_err"] <= DIFF_REL_TOL and g["counts_equal"]
+                and g["corner_max_err_px"] <= CORNER_TOL):
+            emit(out)
+            raise AssertionError(f"weighted CAPS card vs CPU ({name}): {g}")
+
+    # gate 3: fp32 q of 2 pairs, card vs CPU, on the same card-sampled corners
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ssim = samplers["ssim"]
+    corners = ssim.sample_batch(gen, H, W, P, N, 2, diff=ssim.compute_diff(raw_card[:2]),
+                                device=CARD).expand(2, 2, 2, N)
+    tile_norm = ((0.5,) * 3, (0.5,) * 3, torch.float32)
+    params = init_vtamiq_params(cfg, torch.Generator().manual_seed(SEED))
+    q32 = {}
+    for dev, x in (("cpu", raw[:2]), (CARD, raw_card[:2])):
+        model = copy.deepcopy(params).to(dev)
+        patches, pos, scales = get_iqa_patches(x, gen, N, P, ssim, tile_norm=tile_norm,
+                                               topleft=[corners.to(dev)])
+        with torch.inference_mode():
+            q32[dev] = vtamiq_forward(model, cfg, patches, pos, scales,
+                                      compute_dtype=torch.float32).cpu()
+        del model
+    dq = float((q32[CARD] - q32["cpu"]).abs().max())
+    out.update({"fp32_q_cpu": q32["cpu"].tolist(), "fp32_q_card": q32[CARD].tolist(),
+                "fp32_card_vs_cpu": dq, "tf32": False})
+    if not dq <= FP32_Q_TOL:
+        emit(out)
+        raise AssertionError(f"weighted CAPS fp32 card vs CPU: |dq| {dq} > {FP32_Q_TOL}")
+
+    # the config 2 scorer: the main path, counts reset just before
+    scorer_w = VTAMIQScorer(cfg=cfg, seed=SEED, device=CARD, sampler=ssim)
+    scorer_u = VTAMIQScorer(cfg=cfg, seed=SEED, device=CARD)
+    scorer_w.score_batch(refs, dists)  # warm-up
+    gather_kernel.launches = 0
+    qs = scorer_w.score_batch(refs, dists)
+    launches_w = gather_kernel.launches
+    gather_kernel.launches = 0
+    scorer_u.score_batch(refs, dists)
+    launches_u = gather_kernel.launches
+    if not np.isfinite(qs).all() or launches_w != 1:
+        emit(out)
+        raise AssertionError(f"config 2 scorer: q {qs}, gather launches {launches_w}")
+    times = {"weighted": [], "uniform": []}
+    for _ in range(10):
+        for name, sc in (("uniform", scorer_u), ("weighted", scorer_w)):
+            t0 = time.perf_counter()
+            sc.score_batch(refs, dists)
+            times[name].append(time.perf_counter() - t0)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+
+    # the weighted sampling alone, one batch: diff maps, probability maps,
+    # draws, allocation and corners
+    def sample_batch():
+        return ssim.sample_batch(gen, H, W, P, N, PAIRS, diff=ssim.compute_diff(raw_card),
+                                 device=CARD)
+
+    host = []
+    for i in range(23):
+        t0 = time.perf_counter()
+        sample_batch()
+        torch.cuda.synchronize()
+        if i >= 3:
+            host.append(time.perf_counter() - t0)
+    events_ms = median_ms(sample_batch, 3, 20)
+    launches_sampling = sampling_launches(sample_batch)
+
+    # graded synthetic set through the config 2 scorer (random weights)
+    srefs, sdists, mos = synthetic_graded_set()
+    sq = np.concatenate([scorer_w.score_batch(srefs[i:i + PAIRS], sdists[i:i + PAIRS])
+                         for i in range(0, len(srefs), PAIRS)])
+    corr = compute_correlations(mos, sq)
+    del scorer_w, scorer_u
+
+    # config 3: weighted train step, bf16, batch 8, AdamW(5e-5, wd 0.01)
+    model = copy.deepcopy(params).to(CARD)
+    adamw = Optimizer("AdamW", lambda count: torch.tensor(5e-5), weight_decay=0.01,
+                      max_norm=float("inf"))
+    state = adamw.init({n: p.detach() for n, p in model.named_parameters()})
+    mask = build_freeze_mask(model, False)
+    step = make_train_step(cfg, samplers["magnitude"], ExtractConfig(patch_count=N, patch_dim=P),
+                           adamw)
+    targets = torch.from_numpy(np.random.default_rng(SEED).uniform(0, 1, PAIRS)
+                               .astype(np.float32)).to(CARD)
+    model_gen = torch.Generator(device=CARD).manual_seed(SEED)
+    lw = (1.0, 1.0, 1.0)
+    step(model, state, mask, raw_card, targets, PAIRS, lw, gen, model_gen)  # warm-up
+    torch.cuda.synchronize()
+    gather_kernel.launches = 0
+    per_step, step_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        metrics, _ = step(model, state, mask, raw_card, targets, PAIRS, lw, gen, model_gen)
+        loss = float(metrics["loss"])  # synchronizes
+        step_s.append(time.perf_counter() - t0)
+        per_step.append({"loss": loss, "grad_norm": float(metrics["grad_norm"])})
+    train_launches = gather_kernel.launches
+    del model, state, step
+    out.update({
+        "q_config2": [float(q) for q in qs],
+        "gather_launches": {"config2_scorer_batch": launches_w,
+                            "uniform_scorer_batch": launches_u,
+                            "config3_three_train_steps": train_launches},
+        "batch": PAIRS, "batch_s_median": med,
+        "pairs_per_s": {"config2_weighted_ssim": PAIRS / med["weighted"],
+                        "uniform": PAIRS / med["uniform"]},
+        "weighted_sampling_per_batch": {
+            "host_ms_median": float(np.median(host)) * 1e3, "cuda_events_ms": events_ms,
+            "launches": launches_sampling,
+            "what": "compute_diff (SSIM) + sample_batch of 8 items: draws, one copy, "
+                    "probability maps, allocation, corners"},
+        "synthetic_set": {"pairs": len(srefs), "correlations_vs_synthetic_mos": corr,
+                          "note": "random weights: context only"},
+        "train": {"steps": per_step, "step_s": step_s,
+                  "step_s_median": float(np.median(step_s)),
+                  "pairs_per_s": PAIRS / float(np.median(step_s))}})
+    emit(out)
+    if not all(np.isfinite([s["loss"], s["grad_norm"]]).all() for s in per_step) \
+            or train_launches != 3:
+        raise AssertionError(f"config 3 train step: {per_step}, gather launches "
+                             f"{train_launches}")
+    return launches_w
+
+
+# ---------------------------------------------------------------------------
+# 7. server
 # ---------------------------------------------------------------------------
 
 def _npz(**arrays):
@@ -675,7 +907,7 @@ def phase_attention(card):
 
 
 # ---------------------------------------------------------------------------
-# 7. scorer at 5000 patches
+# 8. scorer at 5000 patches
 # ---------------------------------------------------------------------------
 
 FP32_LONG_Q_TOL = 1e-3   # flash vs quadratic in fp32: summation order only
@@ -740,7 +972,7 @@ def phase_scorer_5000p(card, refs, dists):
 
 
 # ---------------------------------------------------------------------------
-# 8. train step at 5000 patches
+# 9. train step at 5000 patches
 # ---------------------------------------------------------------------------
 
 # fp32 checks at batch 2, TF32 off, flash attention against plain.
@@ -918,6 +1150,7 @@ def main():
     k = phase_kernel()
     attention = phase_attention(smi)
     scorer, refs, dists, launches = phase_scorer(smi)
+    weighted_launches = phase_weighted_caps(smi, refs, dists)
     phase_server(scorer, refs, dists)
     del scorer
     long_launches, fp32_fwd_launches = phase_scorer_5000p(smi, refs, dists)
@@ -946,6 +1179,8 @@ def main():
         "replaces": "vtamiq_tpu/ops/gather_kernel.py:51",
         "replaces_fn": "vtamiq_tpu/ops/gather_kernel.py::_vmem_gather_kernel",
         "launches": launches, "launches_on": "one scorer batch of 8 pairs",
+        "launches_weighted_caps": weighted_launches,
+        "launches_weighted_caps_on": "one config 2 (weighted CAPS) scorer batch of 8 pairs",
         "exact": True, "max_abs_err": k["max_abs_err"],
         "ms": k["device_ms_back_to_back"], "ms_is": "device time, back-to-back launches",
         "device_ms_l2_flushed": k["device_ms_l2_flushed"],

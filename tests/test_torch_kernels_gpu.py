@@ -282,3 +282,41 @@ def test_split_backward_equals_fused_on_card(dtype):
     torch.cuda.synchronize()
     for a, b in zip(split, fused):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# weighted CAPS on the card
+# ---------------------------------------------------------------------------
+
+from vtamiq_tpu_torch.ops import sampling  # noqa: E402
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("diff_type", [sampling.DIFF_TYPE_SSIM, sampling.DIFF_TYPE_MAGNITUDE])
+def test_weighted_sampler_on_card_matches_cpu(diff_type):
+    """Weighted CAPS run on the card (diff maps, probability maps,
+    allocation, corners) against the CPU on the card's probability maps
+    copied over and the same draws: equal cell counts, corners within
+    1e-3 px, and diff maps within 1e-5 of the CPU's (run on a machine with
+    an NVIDIA GPU; see README)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: this holds the card's weighted CAPS against the CPU")
+    gen = torch.Generator().manual_seed(diff_type)
+    b, h, w, p, n = 4, 192, 256, 16, 250
+    ref = torch.rand(b, 1, h, w, 3, generator=gen)
+    imgs = torch.cat([ref, (ref + 0.2 * torch.randn(ref.shape, generator=gen)).clamp(0, 1)], 1)
+    s = sampling.PatchSampler(diff_weight=1.0, uniform_weight=0.1,
+                              grid_type=sampling.GRID_TYPE_PERTURBED, diff_type=diff_type)
+    diff_card = s.compute_diff(imgs.cuda())
+    diff_cpu = s.compute_diff(imgs)
+    assert rel_err(diff_card.cpu(), diff_cpu) <= 1e-5
+    prob = s.sample_prob(h, w, diff_card)
+    _, sh, sw = sampling._cell_layout(h, w, p, n)
+    draws = sampling.WeightedDraws.stack([sampling.weighted_draws(gen, sh * sw, n)
+                                          for _ in range(b)])
+    counts = sampling.weighted_counts(prob, draws.gumbel.cuda(), h, w, p, n).cpu()
+    pos = sampling.weighted_positions(prob, draws.to("cuda"), h, w, p, n).cpu()
+    want_counts = sampling.weighted_counts(prob.cpu(), draws.gumbel, h, w, p, n)
+    want_pos = sampling.weighted_positions(prob.cpu(), draws, h, w, p, n)
+    assert torch.equal(counts, want_counts)
+    assert float((pos - want_pos).abs().max()) <= 1e-3

@@ -1,5 +1,6 @@
-"""The port's uniform patch sampling against the JAX package's: budget math
-exactly, positions from JAX's own draws to 1e-6."""
+"""The port's patch sampling against the JAX package's: budget math
+exactly, uniform positions from JAX's own draws to 1e-6, and the weighted
+samplers' constructor (weighted CAPS itself: tests/test_torch_caps.py)."""
 
 import numpy as np
 import jax
@@ -74,9 +75,37 @@ def test_perturbed_simple_forces_uniform(capsys):
 
 
 @pytest.mark.parametrize("kw", [dict(diff_weight=1.0), dict(centerbias_weight=1.0)])
-def test_weighted_caps_raises(kw):
-    with pytest.raises(NotImplementedError, match="weighted CAPS"):
-        ts.PatchSampler(grid_type=ts.GRID_TYPE_PERTURBED, **kw)
+def test_weighted_caps_samples(kw):
+    """A diff-only and a centerbias-only PERTURBED sampler build and sample
+    weighted CAPS: from JAX's draws the corners equal JAX's (1e-4 px, equal
+    integer parts); from the port's generator they lie in range."""
+    h, w, n = 64, 96, 24
+    rng = np.random.default_rng(0)
+    ref = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
+    imgs = np.stack([ref, np.clip(ref + rng.normal(0, 0.2, ref.shape), 0, 1)]).astype(np.float32)
+    jsampler = js.PatchSampler(grid_type=js.GRID_TYPE_PERTURBED, **kw)
+    tsampler = ts.PatchSampler(grid_type=ts.GRID_TYPE_PERTURBED, **kw)
+    assert not tsampler.is_uniform and tsampler.uses_diff == ("diff_weight" in kw)
+    jdiff = jsampler.compute_diff(jnp.asarray(imgs))
+    tdiff = tsampler.compute_diff(torch.from_numpy(imgs)[None])
+
+    key = jax.random.PRNGKey(7)
+    want = np.asarray(jsampler.sample(key, h, w, 16, n, jdiff))
+    _, sh, sw = ts._cell_layout(h, w, 16, n)
+    key_alloc, key_shift, key_slot, key_jit = jax.random.split(key, 4)
+    draws = ts.WeightedDraws(*(torch.from_numpy(np.array(x))[None] for x in (
+        jax.random.uniform(key_alloc, (sh * sw,)), jax.random.uniform(key_shift, (2, 1)),
+        jax.random.uniform(key_slot, (n,)), jax.random.uniform(key_jit, (2, n)))))
+    prob = tsampler.sample_prob(h, w, tdiff).expand(1, h, w)
+    got = ts.weighted_positions(prob, draws, h, w, 16, n, ts.GRID_TYPE_PERTURBED)[0].numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(np.floor(got), np.floor(want))
+
+    pos = tsampler.sample(torch.Generator().manual_seed(1), h, w, 16, n,
+                          diff=None if tdiff is None else tdiff[0])
+    assert pos.shape == (2, n) and pos.dtype == torch.float32
+    assert float(pos.min()) >= 0
+    assert float(pos[0].max()) <= h - 16 and float(pos[1].max()) <= w - 16
 
 
 def test_zero_weight_raises():

@@ -21,8 +21,10 @@ from vtamiq_tpu_torch.models.configs import VTAMIQConfig, get_vit_config
 from vtamiq_tpu_torch.models.vtamiq import VTAMIQ, vtamiq_forward
 from vtamiq_tpu_torch.ops import attention as tattention
 from vtamiq_tpu_torch.ops import gather_kernel
+from vtamiq_tpu_torch.ops import sampling as ts
 from vtamiq_tpu_torch.ops.extraction import get_iqa_patches
 from vtamiq_tpu_torch.ops.sampling import PatchSampler
+from test_torch_extraction import feed_draws, jax_weighted_draw_queue
 
 VIT_KW = dict(num_keep_layers=2, num_extra_tokens=2, hidden_size=64, mlp_dim=128, num_heads=4)
 HEAD_KW = dict(num_rgs=1, num_rcabs=2, ca_reduction=4)
@@ -233,3 +235,66 @@ def test_scorer_past_the_threshold_takes_flash_and_matches_jax(monkeypatch):
                     None if scales is None else jnp.asarray(scales.numpy()),
                     compute_dtype=jnp.float32, attention_fn=jattention.make_attention_fn())
     np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-5)
+
+
+def weighted_sampler(module, diff_type):
+    """BASELINE config 2's sampler (config 3's with DIFF_TYPE_MAGNITUDE)."""
+    return module.PatchSampler(diff_weight=1.0, uniform_weight=0.1,
+                               grid_type=module.GRID_TYPE_PERTURBED, diff_type=diff_type)
+
+
+@pytest.mark.parametrize("diff_type", [js.DIFF_TYPE_SSIM, js.DIFF_TYPE_MAGNITUDE])
+def test_weighted_scorer_matches_jax(monkeypatch, diff_type):
+    """The weighted-CAPS scorer (the diff map, the probability map, the
+    allocation and the corners of each item, the gather and the forward)
+    against JAX's extraction and forward with the same draws, fp32, 1e-5."""
+    b = 3
+    refs, dists = zip(*(pair(10 + s) for s in range(b)))
+    raw = np.stack([np.stack(p) for p in zip(refs, dists)])
+    jp = jinit(jax.random.PRNGKey(4), JCFG)
+    tp = VTAMIQ(CFG)
+    tp.load_state_dict(params_from_jax(_flatten(jp)), strict=True)
+
+    key = jax.random.PRNGKey(43)
+    jextract = jmake_extract_fn(weighted_sampler(js, diff_type),
+                                JExtractConfig(patch_count=N, gather_dtype="float32"))
+    jpatches, jpos, jscales = jextract(jnp.asarray(raw), key)
+    want = np.asarray(jforward(jp, JCFG, jpatches, jpos, jscales, compute_dtype=jnp.float32))
+
+    queue, _ = jax_weighted_draw_queue(list(jax.random.split(key, b)), 2, H, W, N, 1, True)
+    rest = feed_draws(monkeypatch, queue)
+    s = VTAMIQScorer(cfg=CFG, params=tp, patch_count=N, device="cpu",
+                     compute_dtype=torch.float32, sampler=weighted_sampler(ts, diff_type))
+    got = s.score_batch(list(refs), list(dists))
+    assert next(rest, None) is None
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_weighted_ingest_uint8_reads_converted_pixels():
+    """With ingest_uint8 the diff map is computed from the fp32 pixels
+    converted on the device: the same uint8 payload gives the same score
+    whether it came as uint8 or as floats, and tracks the fp32 path."""
+    rng = np.random.default_rng(8)
+    ref8 = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
+    dist8 = np.clip(ref8.astype(np.int16) + rng.integers(-40, 41, ref8.shape), 0, 255
+                    ).astype(np.uint8)
+    sampler = weighted_sampler(ts, ts.DIFF_TYPE_SSIM)
+    q_f = scorer(seed=11, sampler=sampler).score_pair(ref8.astype(np.float32) / 255,
+                                                     dist8.astype(np.float32) / 255)
+    q_u = scorer(seed=11, sampler=sampler, ingest_uint8=True).score_pair(ref8, dist8)
+    q_u2 = scorer(seed=11, sampler=sampler, ingest_uint8=True).score_pair(
+        ref8.astype(np.float32) / 255, dist8.astype(np.float32) / 255)
+    assert q_u == q_u2
+    assert abs(q_f - q_u) <= 1e-5
+
+
+def test_weighted_scorer_in_buckets_and_repeats():
+    """Weighted CAPS with padded buckets (masked std, pad cells never
+    sampled) and several repeats: finite scores, the same for the same seed."""
+    kw = dict(seed=5, sampler=weighted_sampler(ts, ts.DIFF_TYPE_MAGNITUDE), num_repeats=2,
+              size_buckets=[(H, W)])
+    refs, dists = zip(pair(0, 50, 70), pair(1, H, W), pair(2, 41, 96))
+    q1 = scorer(**kw).score_batch(list(refs), list(dists))
+    q2 = scorer(**kw).score_batch(list(refs), list(dists))
+    assert q1.shape == (3,) and np.isfinite(q1).all()
+    np.testing.assert_array_equal(q1, q2)

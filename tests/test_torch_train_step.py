@@ -23,8 +23,10 @@ from vtamiq_tpu_torch.models.checkpoint import params_from_jax
 from vtamiq_tpu_torch.models.configs import VTAMIQConfig, get_vit_config
 from vtamiq_tpu_torch.models.vtamiq import VTAMIQ
 from vtamiq_tpu_torch.ops import attention as tattention
+from vtamiq_tpu_torch.ops import sampling as ts
 from vtamiq_tpu_torch.ops.sampling import PatchSampler
 from vtamiq_tpu_torch.train import optim, steps
+from test_torch_extraction import feed_draws, jax_weighted_draw_queue
 
 VIT_KW = dict(num_keep_layers=2, num_extra_tokens=2, hidden_size=64, mlp_dim=128, num_heads=4)
 HEAD_KW = dict(num_rgs=1, num_rcabs=2, ca_reduction=4, rg_path_drop=0.0, predictor_dropout=0.0)
@@ -170,3 +172,44 @@ def test_frozen_parameters_do_not_move():
     for n, p in module.named_parameters():
         moved = not torch.equal(p.detach(), before[n])
         assert moved == (mask[n] > 0), n
+
+
+def test_weighted_train_steps_match_jax(monkeypatch):
+    """BASELINE config 3's sampler (weighted CAPS, MAGNITUDE diff map,
+    PERTURBED cells) through make_train_step: the port extracts its own
+    patches from the raw images with JAX's draws fed to its sampler, two
+    steps against JAX's make_train_step, fp32, at the tolerances above."""
+    patch_count, n_steps = 500, 2
+    kw = dict(diff_weight=1.0, uniform_weight=0.1, grid_type=ts.GRID_TYPE_PERTURBED,
+              diff_type=ts.DIFF_TYPE_MAGNITUDE)
+    jsampler, tsampler = JPatchSampler(**kw), PatchSampler(**kw)
+    assert not tsampler.is_uniform and tsampler.grid_type == ts.GRID_TYPE_PERTURBED
+    jopt, _ = joptim.make_optimizer(GCONF, 4)
+    jp = jinit(jax.random.PRNGKey(0), JCFG)
+    jmask = joptim.build_freeze_mask(jp, True, FREEZE)
+    jstate = jopt.init(jp)
+    jstep = jsteps.make_train_step(JCFG, jsampler, jsteps.ExtractConfig(
+        patch_count=patch_count, gather_dtype="float32"), jopt, compute_dtype=jnp.float32)
+
+    module = VTAMIQ(CFG)
+    module.load_state_dict(params_from_jax(_flatten(jp)), strict=True)
+    topt, _ = optim.make_optimizer(GCONF, 4)
+    tstate = topt.init({n: p.detach() for n, p in module.named_parameters()})
+    tmask = optim.build_freeze_mask(module, True, FREEZE)
+    tstep = steps.make_train_step(CFG, tsampler, steps.ExtractConfig(
+        patch_count=patch_count, gather_dtype="float32"), topt, compute_dtype=torch.float32)
+
+    for i in range(n_steps):
+        raw, qs = batch(i)
+        valid = B - i
+        key = jax.random.PRNGKey(10 + i)
+        item_keys = list(jax.random.split(jax.random.split(key)[0], B))
+        queue, _ = jax_weighted_draw_queue(item_keys, 2, IMG_H, IMG_W, patch_count, 1, True)
+        rest = feed_draws(monkeypatch, queue)
+        jp, jstate, jmetrics, jq = jstep(jp, jstate, jmask, jnp.asarray(raw), jnp.asarray(qs),
+                                         jnp.asarray(valid), key, jnp.asarray(LW))
+        metrics, q = tstep(module, tstate, tmask, t(raw), t(qs), valid, LW, torch.Generator())
+        assert next(rest, None) is None
+        np.testing.assert_allclose(q.numpy(), np.asarray(jq), rtol=RTOL, atol=ATOL)
+        assert_metrics_match(metrics, jmetrics)
+        assert_params_match(module, jp)

@@ -6,9 +6,13 @@ Layer map (module names follow the JAX package):
 - ``models``  — configs, the sparse-patch ViT and the VTAMIQ head as
                 ``nn.Module`` parameter holders plus functions on tensors,
                 and the JAX checkpoint reader.
-- ``ops``     — uniform patch sampling, patch extraction, the patch-gather
+- ``ops``     — patch sampling (uniform, and weighted CAPS with diff maps
+                and the center prior), patch extraction, the patch-gather
                 and flash-attention CUDA kernels' wrappers, flash attention
-                and the attention policy, the training losses.
+                and the attention policy, the training losses, the IQA
+                metrics (``correlations``, ``fitting``, ``values``).
+- ``data``    — size buckets, and graded synthetic pairs in memory
+                (``synth``).
 - ``train``   — the optimizer chain and freeze masks (``optim``), the
                 extraction stage and the train/eval steps (``steps``).
 - ``inference`` / ``serving`` — ``VTAMIQScorer`` and the HTTP server.

@@ -5,9 +5,12 @@ Port of ``vtamiq_tpu/ops/extraction.py``. Channels-last throughout: images
 pair's extraction over the batch, the port gathers a whole batch at once:
 each scale is one launch of the gather kernel over all B*K images.
 
-Sampled corners and uv positions are computed on the CPU from a CPU
-``torch.Generator`` (see ``ops/sampling.py``) and moved to the images'
-device once per scale.
+The draws come from a CPU ``torch.Generator`` (see ``ops/sampling.py``).
+Uniform corners and uv positions are computed on the CPU and moved to the
+images' device once per scale. Weighted CAPS computes each item's diff map
+once from the raw images, halves it down the pyramid with the images, and
+samples every scale's corners on the images' device, batched over the
+items.
 """
 
 from __future__ import annotations
@@ -59,6 +62,11 @@ def avgpool2x(img: torch.Tensor) -> torch.Tensor:
     return (((a + b) + c) + d) * 0.25
 
 
+def avgpool2x_single(x: torch.Tensor) -> torch.Tensor:
+    """2x2 mean-pool of a single-channel (..., H, W) map."""
+    return avgpool2x(x[..., None])[..., 0]
+
+
 def get_iqa_patches(
     imgs: torch.Tensor,
     generator: torch.Generator,
@@ -78,7 +86,9 @@ def get_iqa_patches(
 
     Args:
       imgs: (B, K, H, W, 3) fp32 pixels on the compute device: the raw
-        images with ``tile_norm``, else the model inputs.
+        images with ``tile_norm``, else the model inputs. A sampler that
+        weighs by a diff map reads it from the raw [0, 1] images, so it
+        needs ``tile_norm``.
       generator: CPU generator for the draws (corners and scale order).
       patch_count / patch_dim / patch_num_scales / scale_num_samples_ratio /
         use_aligned_patches / randomize_patch_scale_order: as in the JAX
@@ -104,9 +114,15 @@ def get_iqa_patches(
     use_scales = patch_num_scales > 1
     dev = imgs.device
     half = patch_dim // 2
+    diff = None
+    if patch_sampler.uses_diff and topleft is None:
+        if tile_norm is None:
+            raise ValueError("get_iqa_patches(): a diff-weighted sampler reads the raw [0, 1] "
+                             "images; pass the raw images with tile_norm")
+        diff = patch_sampler.compute_diff(imgs)                      # (B, H, W)
 
     patches_per_scale, pos_per_scale, scales_per_scale = [], [], []
-    cur = imgs
+    cur, cur_diff = imgs, diff
     cur_hw = None if img_hw is None else torch.as_tensor(img_hw, dtype=torch.int32).cpu()
     num_samples_total = 0
     sampled = 0
@@ -117,17 +133,17 @@ def get_iqa_patches(
             if topleft is not None:
                 corners = topleft[sampled].to(torch.float32).cpu()
             else:
-                corners = torch.stack([
-                    torch.stack(_sample_item(patch_sampler, generator, h, w, patch_dim, n_s,
-                                             None if cur_hw is None else cur_hw[b],
-                                             k_imgs, use_aligned_patches))
-                    for b in range(bsz)])                              # (B, K, 2, N_s)
+                corners = patch_sampler.sample_batch(
+                    generator, h, w, patch_dim, n_s, bsz,
+                    1 if use_aligned_patches else k_imgs, diff=cur_diff, img_hw=cur_hw,
+                    device=dev).expand(bsz, k_imgs, 2, n_s)            # (B, K, 2, N_s)
             sampled += 1
             if cur_hw is None:
                 hw_ratio = torch.tensor([h - half, w - half], dtype=torch.float32)
                 hw_ratio = hw_ratio.expand(bsz, 2)
             else:
                 hw_ratio = torch.clamp(cur_hw - half, min=1).to(torch.float32)
+            hw_ratio = hw_ratio.to(corners.device)
             uv = (corners.transpose(-1, -2) + half) / hw_ratio[:, None, None, :]
             pos_per_scale.append(torch.clamp(uv, 0.0, 1.0 - 1e-6))   # (B, K, N_s, 2)
 
@@ -141,6 +157,8 @@ def get_iqa_patches(
         if patch_count <= num_samples_total or scale == patch_num_scales - 1:
             break
         cur = avgpool2x(cur)
+        if cur_diff is not None:
+            cur_diff = avgpool2x_single(cur_diff)
         if cur_hw is not None:
             cur_hw = cur_hw // 2  # the true region shrinks with the pyramid
 
@@ -155,18 +173,8 @@ def get_iqa_patches(
                                        for _ in range(bsz)])
         order = scale_order.to(torch.int64)[:, None, :].expand(bsz, k_imgs, n)
         patches = torch.take_along_dim(patches, order.to(dev)[..., None, None, None], dim=2)
-        pos = torch.take_along_dim(pos, order[..., None], dim=2)
+        pos = torch.take_along_dim(pos, order.to(pos.device)[..., None], dim=2)
         if scales is not None:
             scales = torch.take_along_dim(scales, order, dim=2)
     return patches, pos.to(dev), None if scales is None else scales.to(dev)
 
-
-def _sample_item(sampler: PatchSampler, generator: torch.Generator, h: int, w: int,
-                 patch_dim: int, n: int, hw: Optional[torch.Tensor], k_imgs: int,
-                 aligned: bool) -> List[torch.Tensor]:
-    """Corners (2, n) for each of an item's K images: one draw shared by all
-    of them when ``aligned``, else one draw each."""
-    if aligned:
-        return [sampler.sample(generator, h, w, patch_dim, n, img_hw=hw)] * k_imgs
-    return [sampler.sample(generator, h, w, patch_dim, n, img_hw=hw)
-            for _ in range(k_imgs)]
