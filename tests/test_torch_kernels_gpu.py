@@ -320,3 +320,98 @@ def test_weighted_sampler_on_card_matches_cpu(diff_type):
     want_pos = sampling.weighted_positions(prob.cpu(), draws, h, w, p, n)
     assert torch.equal(counts, want_counts)
     assert float((pos - want_pos).abs().max()) <= 1e-3
+
+
+# --------------------------------------------------------------------------
+# the host data pipeline and the engine on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_loader_decodes_into_pinned_tensors_on_card(tmp_path):
+    """The native batch decode writes each image into its slot of one
+    pinned host tensor (padded slots for canonical buckets), which copies to
+    the card without blocking and equals the images decoded one by one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: pinned host memory needs a CUDA build and card")
+    from vtamiq_tpu_torch.data import datasets, native_io, synth
+    from vtamiq_tpu_torch.data.pipeline import PatchDatasetLoader
+    root = str(tmp_path)
+    synth.generate_tid2013(f"{root}/tid2013", hw=(48, 64), image_refs=1)
+    ds = datasets.TID2013Dataset(datasets_root=root)
+    ds.add_split(datasets.dataset_split("S", [0]))
+    for buckets in (0, 1):
+        loader = PatchDatasetLoader(ds, "S", batch_size=8, patch_count=16, shuffle=True,
+                                    allow_img_flip=True, seed=1, pin_memory=True,
+                                    max_size_buckets=buckets)
+        batches = list(loader)
+        assert len(batches) == len(loader) == 15
+        for batch in batches:
+            assert batch.imgs_raw.is_pinned() and batch.qs.is_pinned()
+            dev = batch.imgs_raw.to("cuda", non_blocking=True)
+            torch.cuda.synchronize()
+            for i in range(batch.valid):
+                for k, path in enumerate(ds.sample_paths(int(batch.indices[i]))):
+                    img = torch.from_numpy(native_io.decode_rgb(path))
+                    got = dev[i, k].cpu()
+                    assert any(torch.equal(got, f) for f in (
+                        img, img.flip(0), img.flip(1), img.flip(0).flip(1)))
+
+
+@pytest.mark.gpu
+def test_engine_config3_path_two_steps_on_card(tmp_path):
+    """engine.train() on the card at a small width through BASELINE config
+    3's path (KADID-10k layout, weighted CAPS with the MAGNITUDE diff map,
+    bf16, AdamW): two steps, one gather launch each, finite losses, and a
+    checkpoint written."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the engine's device is cuda")
+    import copy
+    import json
+    import os
+    import numpy as np
+    from vtamiq_tpu_torch.data import datasets, synth
+    from vtamiq_tpu_torch.models.checkpoint import load_checkpoint
+    from vtamiq_tpu_torch.ops import sampling
+    from vtamiq_tpu_torch.train import config as C, engine
+    names = ("global_config", "vit_config", "vtamiq_config", "dataset_config_base",
+             "dataloader_config_base")
+    snaps = {n: copy.deepcopy(getattr(C, n)) for n in names}
+    registry = dict(C._DATASET_REGISTRY)
+    root = str(tmp_path)
+    synth.generate_kadid10k(f"{root}/kadid10k", hw=(96, 128), image_refs=1)
+
+    class TwoBatchKADID(datasets.KADID10kDataset):
+        num_ref_images, num_dist_images = 1, 8
+
+        def __init__(self, **kw):
+            kw.setdefault("datasets_root", root)
+            super().__init__(**kw)
+
+    try:
+        C._DATASET_REGISTRY[C.DATASET_KADID10K] = (TwoBatchKADID,
+                                                   C.setup_split_config([0], 0, 0))
+        C.global_config.update(dataset=C.DATASET_KADID10K, device="cuda", do_train=True,
+                               do_val=False, do_test=False, num_epochs=1, seed=3,
+                               allow_use_full_dataset=False, compute_dtype="bfloat16",
+                               output_dir=f"{root}/out", config_validated=False)
+        C.vit_config.update(num_keep_layers=2, hidden_size=64, mlp_dim=128, num_heads=4)
+        C.dataset_config_base["patch_sampler_config"] = dict(
+            diff_weight=1.0, uniform_weight=0.1, grid_type=sampling.GRID_TYPE_PERTURBED,
+            diff_type=sampling.DIFF_TYPE_MAGNITUDE)
+        C.dataloader_config_base[C.DATALOADER_PARAMS][C.USE_DEFAULT_PARAMS] = True
+        C.dataloader_config_base[C.SPLIT_NAME_TRAIN].update(batch_size=4, patch_count=100)
+        before = gather_kernel.launches
+        engine.train()
+        assert gather_kernel.launches - before == 2
+        assert engine.last_run_stats["train"][0]["batches"] == 2
+        out = C.global_config["output_dir_final"]
+        ckpt = load_checkpoint(os.path.join(out, "best.npz"))
+        with open(os.path.join(out, "scalars.jsonl")) as f:
+            assert all(np.isfinite(json.loads(line)["value"]) for line in f)
+        assert ckpt["epoch"] == 1 and len(ckpt[C.MODEL_STATE_DICT]) > 0
+    finally:
+        for n, v in snaps.items():
+            getattr(C, n).clear()
+            getattr(C, n).update(v)
+        C._DATASET_REGISTRY.clear()
+        C._DATASET_REGISTRY.update(registry)

@@ -5,18 +5,25 @@ Layer map (module names follow the JAX package):
 
 - ``models``  — configs, the sparse-patch ViT and the VTAMIQ head as
                 ``nn.Module`` parameter holders plus functions on tensors,
-                and the JAX checkpoint reader.
+                checkpoints in the JAX package's npz format (read and
+                write, optimizer state included), parameter tables.
 - ``ops``     — patch sampling (uniform, and weighted CAPS with diff maps
                 and the center prior), patch extraction, the patch-gather
                 and flash-attention CUDA kernels' wrappers, flash attention
                 and the attention policy, the training losses, the IQA
                 metrics (``correlations``, ``fitting``, ``values``).
-- ``data``    — size buckets, and graded synthetic pairs in memory
-                (``synth``).
+- ``data``    — the dataset parsers, the batch loader, the host image
+                decoder's bindings, size buckets, and synthetic pairs and
+                datasets (``synth``).
 - ``train``   — the optimizer chain and freeze masks (``optim``), the
-                extraction stage and the train/eval steps (``steps``).
+                extraction stage and the train/eval steps (``steps``), the
+                run configs (``config``), the training engine
+                (``engine.train()``) and the run scripts (``run_custom``,
+                ``run_multi``).
+- ``utils``   — logging, the scalar writer, accumulators, timers, retries.
 - ``inference`` / ``serving`` — ``VTAMIQScorer`` and the HTTP server.
-- ``csrc`` + ``_build`` — CUDA sources, built with nvcc at first use.
+- ``csrc`` + ``_build`` — CUDA sources built with nvcc, and the host image
+                decoder built with g++, at first use.
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``. Importing the package never imports JAX or ``vtamiq_tpu``.

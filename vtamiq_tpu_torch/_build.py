@@ -9,6 +9,12 @@ no lock file exists and a build cut off halfway leaves nothing that a later
 build waits on. The sources include no PyTorch header, so a build takes
 seconds and needs neither ``ninja`` nor ``torch.utils.cpp_extension``. It
 runs at the first kernel launch, never at import.
+
+The host image decoder (``csrc/image_io.cpp``, plain C++ for the CPU) builds
+the same way with ``g++`` (``build_host``): its JPEG path compiles only where
+``jpeglib.h`` exists, its PNG path on libpng where ``png.h`` exists, else on
+zlib alone where ``zlib.h`` does, and the link names only the libraries of
+the codecs compiled in.
 """
 
 from __future__ import annotations
@@ -17,13 +23,15 @@ import ctypes
 import glob
 import hashlib
 import os
+import platform
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -175,3 +183,73 @@ def load_library() -> Library:
 def build_info() -> Optional[BuildInfo]:
     """How this process's libraries were obtained (None before the first load)."""
     return _info
+
+
+# --------------------------------------------------------------------------
+# host C++ (the image decoder)
+# --------------------------------------------------------------------------
+
+HOST_SOURCE = os.path.join(CSRC_DIR, "image_io.cpp")
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+# codec macro the source defines when a header exists -> libraries to link
+_CODEC_LIBS = (("VTAMIQ_HAVE_JPEG", "jpeg", ("-ljpeg",)),
+               ("VTAMIQ_PNG_LIBPNG", "png", ("-lpng", "-lz")),
+               ("VTAMIQ_PNG_ZLIB", "png-zlib", ("-lz",)))
+
+
+@dataclass
+class HostBuildInfo:
+    path: str
+    seconds: float   # wall time of the build; 0.0 when it was built already
+    codecs: List[str]  # "bmp" always; "jpeg", and "png" (libpng) or "png-zlib"
+    # (the source's own PNG decoder on zlib) where the headers exist
+
+
+def _gxx() -> str:
+    gxx = os.environ.get("CXX") or shutil.which("g++")
+    if not gxx:
+        raise RuntimeError("g++ not found (set $CXX): the host image decoder cannot be built")
+    return gxx
+
+
+def _host_codecs(gxx: str, defines: Sequence[str]) -> List[str]:
+    """The codecs whose headers the compiler finds, from the macros that the
+    source's ``__has_include`` tests define."""
+    out = subprocess.run([gxx, "-std=c++17", *defines, "-E", "-dM", HOST_SOURCE],
+                         capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"g++ -E failed on {HOST_SOURCE}:\n{out.stderr[:4000]}")
+    defined = set(re.findall(r"#define (\w+)", out.stdout))
+    return ["bmp"] + [name for macro, name, _ in _CODEC_LIBS if macro in defined]
+
+
+def build_host(defines: Sequence[str] = ()) -> HostBuildInfo:
+    """Build the host image decoder if its exact build does not exist.
+    ``defines``: extra ``-D`` flags (``-DVTAMIQ_WITHOUT_PNG`` builds without
+    PNG, ``-DVTAMIQ_WITHOUT_LIBPNG`` takes the zlib decoder where ``png.h``
+    exists)."""
+    gxx = _gxx()
+    codecs = _host_codecs(gxx, defines)
+    libs = [f for macro, name, flags in _CODEC_LIBS if name in codecs for f in flags]
+    cmd_tail = [*GXX_FLAGS, *defines, *libs, "-lpthread"]
+    h = hashlib.sha256(" ".join(cmd_tail + [gxx, platform.machine()]).encode())
+    with open(HOST_SOURCE, "rb") as fh:
+        h.update(fh.read())
+    path = os.path.join(BUILD_DIR, f"libimage_io.{h.hexdigest()[:16]}.so")
+    if os.path.isfile(path):
+        return HostBuildInfo(path, 0.0, codecs)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=".tmp-", suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        cmd = [gxx, *GXX_FLAGS, *defines, HOST_SOURCE, "-o", tmp, *libs, "-lpthread"]
+        out = subprocess.run(cmd, capture_output=True, text=True)
+        if out.returncode != 0:
+            raise RuntimeError(f"g++ failed ({out.returncode}): {' '.join(cmd)}\n"
+                               f"{out.stderr[:4000]}")
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return HostBuildInfo(path, time.perf_counter() - t0, codecs)

@@ -1,11 +1,14 @@
-"""Checkpoint reading and the weight carrier from the JAX package's format.
+"""Checkpoints in the JAX package's npz format: save, load, merge, gates.
 
-Port of ``vtamiq_tpu/models/checkpoint.py`` (the npz reader and
-``merge_params``). A JAX checkpoint is one ``.npz`` of flattened pytree
-leaves, keyed by their tree path joined with ``|``, plus a ``__meta__`` JSON
-blob. The port's modules are named after the same tree paths, so a leaf
+Port of ``vtamiq_tpu/models/checkpoint.py``. A checkpoint is one ``.npz`` of
+flattened leaves, keyed by their tree path joined with ``|``, plus a
+``__meta__`` JSON blob (epoch, SROCC, time and the engine's run state) and,
+when the optimizer is saved, its leaves as ``__opt__|<i>`` in the order
+``jax.tree_util`` flattens the optax state (``opt_state_leaves``).
+The port's modules are named after the same tree paths, so a leaf
 ``vit|encoder|layers|layer_0|attn|query|kernel`` is the state-dict entry
-``vit.encoder.layers.layer_0.attn.query.kernel``.
+``vit.encoder.layers.layer_0.attn.query.kernel``; a checkpoint written by
+either package loads in the other.
 
 Layouts are kept as JAX has them, so carrying weights across is a rename:
 dense kernels stay ``(in, out)`` and the port computes ``x @ kernel``
@@ -16,7 +19,9 @@ patches flattened in (h, w, c) order, the port's channels-last patch layout.
 from __future__ import annotations
 
 import json
-from typing import Callable, Dict, Optional
+import os
+import time
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -28,21 +33,126 @@ PREF_MODULE_STATE_DICT = "pref_module_state_dict"
 _SEP = "|"  # path separator in the JAX package's flattened keys
 
 
+OPT_LEAVES = "__opt_leaves__"
+
+
+def save_checkpoint(output_dir: str, filename: str,
+                    models: Mapping[str, nn.Module],
+                    epoch: int, srocc: float, opt_state: Optional[Mapping] = None,
+                    extra_meta: Optional[Dict] = None) -> str:
+    """Write a checkpoint. ``models`` maps a state-dict name
+    (MODEL_STATE_DICT, PREF_MODULE_STATE_DICT) to a module; ``opt_state``:
+    the port optimizer's state, stored as the JAX package's optax leaves
+    (``opt_state_leaves``). Written under a temporary name and moved into
+    place."""
+    os.makedirs(output_dir, exist_ok=True)
+    path = os.path.join(output_dir, filename)
+    flat: Dict[str, np.ndarray] = {}
+    for model_name, model in models.items():
+        if model is None:
+            continue
+        for k, v in params_to_jax(model).items():
+            flat[f"{model_name}{_SEP}{k}"] = v
+    if opt_state is not None:
+        for i, leaf in enumerate(opt_state_leaves(opt_state)):
+            flat[f"__opt__{_SEP}{i}"] = np.asarray(leaf)
+    meta = {"epoch": int(epoch), "SROCC": float(srocc), "time": time.time(),
+            **(extra_meta or {})}
+    flat["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **flat)
+    os.replace(tmp, path)
+    return path
+
+
 def load_checkpoint(path: str) -> Dict[str, object]:
-    """Read a JAX-package checkpoint -> ``{epoch, SROCC, meta, <model name>:
-    flat}``, where each ``flat`` maps ``|``-joined leaf paths (below the model
-    name) to numpy arrays. Optimizer leaves (``__opt__``) are not read: the
-    port does not train yet."""
+    """Read a checkpoint -> ``{epoch, SROCC, meta, <model name>: flat,
+    __opt_leaves__: [...]}``: each ``flat`` maps ``|``-joined leaf paths
+    (below the model name) to numpy arrays; ``__opt_leaves__`` (present when
+    the optimizer was saved) lists the optimizer's leaves in order."""
     with np.load(path, allow_pickle=False) as npz:
         flat = {k: npz[k] for k in npz.files}
     meta = json.loads(bytes(flat.pop("__meta__", np.frombuffer(b"{}", np.uint8))).decode())
     out: Dict[str, object] = {"epoch": meta.get("epoch", 0),
                               "SROCC": meta.get("SROCC", -1.0), "meta": meta}
+    opt_leaves = {}
     for key, value in flat.items():
         name, rest = key.split(_SEP, 1)
-        if name != "__opt__":
+        if name == "__opt__":
+            opt_leaves[int(rest)] = value
+        else:
             out.setdefault(name, {})[rest] = value
+    if opt_leaves:
+        out[OPT_LEAVES] = [opt_leaves[i] for i in sorted(opt_leaves)]
     return out
+
+
+def tree_order(names) -> list:
+    """Parameter names in the order ``jax.tree_util`` flattens the nested
+    dict they name: keys sorted level by level (``layer_10`` before
+    ``layer_2``)."""
+    return sorted(names, key=lambda n: tuple(n.split(".")))
+
+
+def _moment_keys(state: Mapping) -> list:
+    """The optimizer state's moment dicts in the optax state's order:
+    Adam/AdamW (count, mu, nu, schedule count), SGD with momentum (trace,
+    schedule count), SGD without (schedule count)."""
+    return [k for k in ("mu", "nu", "trace") if k in state]
+
+
+def opt_state_leaves(state: Mapping) -> list:
+    """A port optimizer state (``train/optim.py::Optimizer.init``) as the
+    leaves of the optax state that the JAX package's ``make_optimizer``
+    keeps, in ``jax.tree_util`` order; counts are int32 scalars."""
+    count = np.asarray(state["count"], np.int32)
+    leaves = [count] if "mu" in state else []
+    for key in _moment_keys(state):
+        moments = state[key]
+        leaves += [moments[n].detach().to("cpu", torch.float32).numpy().copy()
+                   for n in tree_order(moments)]
+    return leaves + [count]
+
+
+def restore_opt_state(template: Dict, leaves) -> Dict:
+    """Fill a freshly initialized port optimizer state (the structure
+    template) from stored leaves in place and return it; raises on a
+    structure mismatch."""
+    leaves = list(leaves)
+    moment_keys = _moment_keys(template)
+    want = (1 if "mu" in template else 0) + 1 + sum(len(template[k]) for k in moment_keys)
+    if len(leaves) != want:
+        raise ValueError(f"Optimizer state structure mismatch on restore: "
+                         f"{len(leaves)} leaves, the optimizer has {want}.")
+    template["count"] = int(np.asarray(leaves[-1]))
+    i = 1 if "mu" in template else 0
+    with torch.no_grad():
+        for key in moment_keys:
+            moments = template[key]
+            for n in tree_order(moments):
+                leaf = torch.as_tensor(np.asarray(leaves[i]))
+                if tuple(leaf.shape) != tuple(moments[n].shape):
+                    raise ValueError(f"Optimizer state shape mismatch for {key}[{n}]: "
+                                     f"{tuple(leaf.shape)} vs {tuple(moments[n].shape)}")
+                moments[n].copy_(leaf)
+                i += 1
+    return template
+
+
+def apply_pretraining_gates(model_state: Mapping[str, np.ndarray], allow_vit: bool = True,
+                            allow_diffnet: bool = True, log=None) -> Dict[str, np.ndarray]:
+    """Drop the ViT and/or the DiffNet + predictor leaves from a loaded flat
+    state (the reference's pretraining gates)."""
+    drop = []
+    if not allow_vit:
+        if log:
+            log("Not loading transformer weights from checkpoint.")
+        drop.append("vit")
+    if not allow_diffnet:
+        if log:
+            log("Not loading diffnet weights from checkpoint.")
+        drop += ["quality_decoder", "q_predictor", "diff_scale"]
+    return {k: v for k, v in model_state.items() if k.split(_SEP, 1)[0] not in drop}
 
 
 def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -52,6 +162,14 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     port keeps the JAX layouts (see the module docstring)."""
     return {k.replace(_SEP, "."): torch.from_numpy(np.array(v, copy=True))
             for k, v in flat.items()}
+
+
+def params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The inverse of ``params_from_jax``: a module's parameters as the JAX
+    package's ``|``-joined leaf paths -> numpy arrays (fp32 copies on the
+    host)."""
+    return {k.replace(".", _SEP): v.detach().to("cpu", torch.float32).numpy().copy()
+            for k, v in model.state_dict().items()}
 
 
 def merge_params(model: nn.Module, loaded: Dict[str, torch.Tensor],
