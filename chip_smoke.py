@@ -12,8 +12,11 @@ Phases, each printing one JSON line:
                  the same CUDA tensors, bit for bit (torch.equal): the
                  scorer's shapes (16 images 384x512x3, 500 patches of 16x16,
                  bf16 out with the normalization fused), an fp32 case without
-                 normalization, and an odd width (481) with corners on and
-                 past the edges. The kernel's device time: CUDA events around
+                 normalization, an odd width (481) with corners on and past
+                 the edges, the use_pu input (the PU-encoded fp32 image, no
+                 normalization, bf16 out: pu_bf16_plain) and a K = 3
+                 pairwise batch (36 images 256x256, 256 patches). The
+                 kernel's device time: CUDA events around
                  a CUDA graph of 200 back-to-back launches of its C entry
                  point, over 200 (and the same with the 50 MB L2 flushed
                  before each launch); one wrapper call and the plain version
@@ -68,12 +71,24 @@ Phases, each printing one JSON line:
 9. train_5000p — make_train_step at batch 8, bf16, AdamW(5e-5, wd 0.01),
                  loss weights (1, 1, 1): 1 warm-up and 3 timed steps (5 flash
                  forward and 5 fused backward launches each), one timed step
-                 with the split backward (5 dq and 5 dkv launches); in fp32 at
-                 batch 2 the fused and split backward's gradient norms agree
-                 (1e-4 relative), a step through the flash kernels against a
-                 step through plain attention (loss 1e-5), and the encoder's
-                 gradient through each (every tensor 1e-3 relative), with
-                 the flash launches of each fp32 run reported.
+                 with the split backward (5 dq and 5 dkv launches); a bf16
+                 forward and backward with DropPath active, without and with
+                 remat (ViTConfig.remat: each encoder layer recomputed in the
+                 backward), every gradient equal (torch.equal), each
+                 reported with its ms, peak memory and flash launches; in
+                 fp32 at batch 2 the fused and split backward's gradient
+                 norms agree (1e-4 relative), a step through the flash
+                 kernels against a step through plain attention (loss 1e-5),
+                 and the encoder's gradient through each (every tensor 1e-3
+                 relative), with the flash launches of each fp32 run
+                 reported.
+9b. model_extras — fp32, TF32 off, card against CPU on the same patches:
+                 one train step with one Houlsby adapter a layer at 500
+                 patches, the encoder frozen and the adapters trainable
+                 (loss 1e-4, q 1e-3); config 3's weighted train step with
+                 use_pu (q 1e-3, loss 1e-4); and one bf16 config 3 use_pu
+                 step on the card whose gather (PU image, no
+                 normalization, bf16 out) equals the plain version.
 10. engine_config3 — BASELINE config 3 through engine.train() at full width
                  (ViT-B/16 6 layers, 8 registers, DiffNet head, 500 patches,
                  weighted CAPS with the MAGNITUDE diff map, batch 8, AdamW,
@@ -102,10 +117,27 @@ Phases, each printing one JSON line:
                  equal (layers - 1) per train step and per test batch, fused
                  backward launches (layers - 1) per train step; finite
                  correlations. Reported: trained and scored pairs/s.
-12. kernels    — one JSON object per kernel: time, bound, plain time,
+12. engine_pieapp — the PieAPP pretraining recipe (run tag 2e-12b-256p)
+                 through engine.train(): ViT-B/16 6 layers, 8 registers,
+                 ImageNet weights from a synthetic ViT-B_16-layout npz (12
+                 blocks, a 14x14 positional grid resized to 24x24; written
+                 with the datasets), the preference module, batch 12, 256
+                 patches, AdamW, bf16; 140 PieAPP references of 3 pairs at
+                 256x256, split 130 / 5 / 5; one epoch, then a resumed epoch
+                 under torch.profiler. Gates: the checkpoint holds the
+                 preference module apart from the model, the resume reloads
+                 it bit for bit, p moved from 6, one gather launch a step,
+                 no flash launch (265 tokens stay below the threshold),
+                 finite losses, and one fp32 pairwise step of 2 triplets
+                 (card against CPU from the same weights: loss 1e-4, p
+                 1e-6). Reported: trained triplets/s beside the bare
+                 pairwise step's, decode and wait ms per batch, the
+                 device's idle share over the resumed epoch.
+13. kernels    — one JSON object per kernel: time, bound, plain time,
                  library time in bf16 and in fp32 (the fp32 bound at the
                  3xTF32 rate, beside it at the FFMA rate), launches on the
-                 main path, in the fp32 runs and in the engine phases.
+                 main path, in the fp32 runs, in the engine phases and in
+                 the remat step.
 
 The build phase also reports the host image decoder's build seconds and the
 codecs it holds.
@@ -113,12 +145,12 @@ codecs it holds.
 The last line is {"ok": true, "device": {...}}. Any failure raises, so the
 exit code is not 0; with no CUDA device the script exits 1 before any result.
 The temporary datasets are deleted and the writer processes ended on exit.
-A watchdog ends a hung run after 600 s with a traceback and exit code 1.
+A watchdog ends a hung run after 900 s with a traceback and exit code 1.
 """
 
 import faulthandler
 
-faulthandler.dump_traceback_later(600, exit=True)
+faulthandler.dump_traceback_later(900, exit=True)
 
 import io  # noqa: E402
 import json  # noqa: E402
@@ -131,6 +163,7 @@ from concurrent.futures import ThreadPoolExecutor  # noqa: E402
 
 import contextlib  # noqa: E402
 import copy  # noqa: E402
+import dataclasses  # noqa: E402
 import ctypes  # noqa: E402
 import os  # noqa: E402
 import shutil  # noqa: E402
@@ -144,12 +177,15 @@ from vtamiq_tpu_torch import _build  # noqa: E402
 from vtamiq_tpu_torch.data import datasets, native_io, synth  # noqa: E402
 from vtamiq_tpu_torch.inference import VTAMIQScorer  # noqa: E402
 from vtamiq_tpu_torch.models.configs import VTAMIQConfig, get_vit_config  # noqa: E402
+from vtamiq_tpu_torch.models.preference import attach_preference_module  # noqa: E402
 from vtamiq_tpu_torch.models.vtamiq import init_vtamiq_params, vtamiq_forward  # noqa: E402
 from vtamiq_tpu_torch.ops import flash_kernel, gather_kernel  # noqa: E402
 from vtamiq_tpu_torch.ops import sampling  # noqa: E402
-from vtamiq_tpu_torch.ops.attention import make_attention_fn  # noqa: E402
+from vtamiq_tpu_torch.ops.attention import (FLASH_ATTENTION_THRESHOLD,  # noqa: E402
+                                            make_attention_fn)
 from vtamiq_tpu_torch.ops.correlations import compute_correlations  # noqa: E402
 from vtamiq_tpu_torch.ops.extraction import get_iqa_patches  # noqa: E402
+from vtamiq_tpu_torch.ops.losses import loss_func_iqa  # noqa: E402
 from vtamiq_tpu_torch.ops.sampling import PatchSampler  # noqa: E402
 from vtamiq_tpu_torch.serving import ScoringServer  # noqa: E402
 from vtamiq_tpu_torch.models.checkpoint import OPT_LEAVES, load_checkpoint  # noqa: E402
@@ -157,10 +193,14 @@ from vtamiq_tpu_torch.train import config as engine_config, engine  # noqa: E402
 from vtamiq_tpu_torch.train.optim import Optimizer, build_freeze_mask  # noqa: E402
 from vtamiq_tpu_torch.train.steps import (ExtractConfig, make_extract_fn,  # noqa: E402
                                           make_train_step, make_train_step_on_patches)
+from vtamiq_tpu_torch.utils.color_spaces import pu_display_encode_torch  # noqa: E402
 
 SEED = 0
 H, W, C, P, N = 384, 512, 3, 16, 500
 PAIRS = 8
+# the PieAPP pretraining recipe (run tag 2e-12b-256p): batch 12, 256 patches,
+# 256x256 PieAPP images
+PIEAPP_BATCH, PIEAPP_PATCHES, PIEAPP_HW = 12, 256, 256
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
@@ -348,11 +388,19 @@ def phase_kernel():
     ti, tj = _corners(gen, 2 * PAIRS, H, W, N)
     img_odd = torch.rand(2, H, 481, C, generator=gen).cuda()
     ti_odd, tj_odd = _corners(gen, 2, H, 481, N, edges=True)
+    # the use_pu input: the PU-encoded image in fp32, gathered without
+    # normalization to bf16 (the kernel rounds each patch once)
+    img_pu = pu_display_encode_torch(torch.rand(2 * PAIRS, H, W, C, generator=gen).cuda())
+    # a K = 3 pairwise batch: 12 triplets of 256x256 images, 256 patches
+    img_k3 = torch.rand(3 * PIEAPP_BATCH, PIEAPP_HW, PIEAPP_HW, C, generator=gen).cuda()
+    ti_k3, tj_k3 = _corners(gen, 3 * PIEAPP_BATCH, PIEAPP_HW, PIEAPP_HW, PIEAPP_PATCHES)
     cases = {
         "main_bf16_norm": (img, ti, tj, mean, inv_std, torch.bfloat16),
         "main_fp32_plain": (img, ti, tj, None, None, torch.float32),
         "odd_width_481_bf16_norm": (img_odd, ti_odd, tj_odd, mean, inv_std, torch.bfloat16),
         "odd_width_481_fp32_plain": (img_odd, ti_odd, tj_odd, None, None, torch.float32),
+        "pu_bf16_plain": (img_pu, ti, tj, None, None, torch.bfloat16),
+        "k3_36x256x256_bf16_norm": (img_k3, ti_k3, tj_k3, mean, inv_std, torch.bfloat16),
     }
     results = {}
     for name, (x, a, b, mu, inv, dt) in cases.items():
@@ -1106,6 +1154,7 @@ def phase_train_5000p(card, refs, dists):
         raise AssertionError(f"split train step launches {split_launches}, expected "
                              f"{split_expected}; loss {split_loss}")
     del model, state, step, split
+    remat = remat_compare(cfg, base, raw, qs)
 
     # fp32, batch 2, TF32 off: fused vs split backward, flash vs plain attention
     unrelated = torch.stack([raw[0:4:2, 0], raw[1:4:2, 0]], dim=1)  # (2, 2, H, W, 3)
@@ -1116,14 +1165,60 @@ def phase_train_5000p(card, refs, dists):
           "pairs_per_s": PAIRS / float(np.median(times)), "launches": launches,
           "expected_launches": expected, "split_launches": split_launches,
           "split_step_s": split_s,
-          "peak_memory_gb": peak_gb, **checks, "card": card})
+          "peak_memory_gb": peak_gb, "remat": {k: v for k, v in remat.items() if k != "grads"},
+          **checks, "card": card})
+    if not remat["gradients_equal"]:
+        raise AssertionError(f"remat vs plain gradients differ: {remat['differing']}")
     if not checks["fused_vs_split_grad_norm_rel"] <= SPLIT_NORM_TOL:
         raise AssertionError(f"fused vs split backward grad norm: {checks}")
     if not (checks["flash_vs_plain_loss_rel"] <= PLAIN_LOSS_TOL
             and checks["encoder_grad_rel_max"] <= ENCODER_GRAD_TOL
             and checks["encoder_key_bias_err_of_total"] <= KEY_BIAS_TOL):
         raise AssertionError(f"flash vs plain in fp32: {checks}")
-    return launches, split_launches, checks["fp32_flash_launches"]
+    return launches, split_launches, checks["fp32_flash_launches"], remat["with_remat"]["launches"]
+
+
+def remat_compare(cfg, base, raw, qs):
+    """One bf16 forward and backward at 5000 patches with DropPath active
+    (p 0.1), without and with remat, on the same patches and DropPath
+    draws: step ms (the second of two calls), peak memory, flash launches,
+    and every gradient held equal (torch.equal)."""
+    dp = dataclasses.replace(cfg.vit, vit_path_drop_active=True)
+    extract = make_extract_fn(PatchSampler(), ExtractConfig(patch_count=N_LONG, patch_dim=P))
+    patches, pos, scales = extract(raw, torch.Generator().manual_seed(SEED + 2))
+    attention_fn = make_attention_fn()
+    runs = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, vit=dataclasses.replace(dp, remat=remat))
+        model = copy.deepcopy(base).to(CARD)
+        for _ in range(2):  # the first call warms up; the second is reported
+            for prm in model.parameters():
+                prm.grad = None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            flash_kernel.reset_launches()
+            gather_kernel.launches = 0
+            t0 = time.perf_counter()
+            q = vtamiq_forward(model, c, patches, pos, scales, train=True,
+                               generator=torch.Generator(device=CARD).manual_seed(SEED),
+                               attention_fn=attention_fn)
+            loss, _ = loss_func_iqa(q, qs, 1.0, 1.0, 1.0, weighted=True)
+            loss.backward()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        runs[remat] = {"ms": ms, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "launches": {"gather": gather_kernel.launches, **_flash_counts()},
+                       "loss": float(loss.detach()),
+                       "grads": {n: prm.grad for n, prm in model.named_parameters()}}
+        del model
+    g0, g1 = runs[False].pop("grads"), runs[True].pop("grads")
+    differing = [n for n in g0 if (g0[n] is None) != (g1[n] is None)
+                 or (g0[n] is not None and not torch.equal(g0[n], g1[n]))]
+    return {"what": f"bf16 forward + backward, batch {PAIRS}, {N_LONG} patches, DropPath "
+                    f"active (p {cfg.vit.path_drop_prob}), rank + pears + MAE loss",
+            "without_remat": runs[False], "with_remat": runs[True],
+            "gradients_equal": not differing, "differing": differing[:5],
+            "gradient_tensors": len(g0)}
 
 
 def fp32_checks(cfg, base, raw):
@@ -1211,6 +1306,10 @@ def _writer_calls(root, png):
              "live": f"generate_live({root!r} + '/LIVE', per_dir_real={LIVE_REAL_PER_DIR})"}
     if png:
         calls["csiq"] = f"generate_csiq({root!r} + '/CSIQ', image_refs=1)"
+    calls["pieapp"] = (f"generate_pieapp({root!r} + '/PieAPP_dataset', "
+                       f"train_refs={PIEAPP_REFS}, pairs_per_ref={PIEAPP_PAIRS_PER_REF}, "
+                       "test_refs=1, test_dist=1, image_refs=None, image_test_refs=0)")
+    calls["vit_npz"] = f"write_vit_npz({root!r} + '/ViT-B_16.npz', seed={SEED})"
     return calls
 
 
@@ -1474,6 +1573,315 @@ def phase_engine_config5(card, root, png):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 13. engine_pieapp: the PieAPP pretraining recipe through engine.train()
+# ---------------------------------------------------------------------------
+
+PIEAPP_REFS, PIEAPP_PAIRS_PER_REF = 140, 3
+PIEAPP_SPLIT = (list(range(130)), list(range(130, 135)), list(range(135, 140)))
+PAIRWISE_LOSS_TOL = 1e-4   # card vs CPU fp32 step: summation order only
+PREF_P_TOL = 1e-6          # p after that step
+
+
+def _pieapp_cfg(vit_npz=None):
+    vit = get_vit_config(num_keep_layers=6, num_extra_tokens=8, vit_weights_path=vit_npz)
+    return VTAMIQConfig(vit=vit)
+
+
+def pairwise_card_vs_cpu(vit_npz):
+    """One fp32 pairwise train step of 2 triplets with the preference
+    module, AdamW, TF32 off, on the card and on the CPU from the same
+    weights (ImageNet npz loaded) and the same card-gathered patches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _pieapp_cfg(vit_npz)
+    base = engine.get_model_params(cfg, seed=SEED, use_pref_module=True)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    # two noisy copies of each reference, so that the preferences stay off
+    # the sigmoid's flat tails and p gets a gradient
+    ref = torch.rand(2, 1, PIEAPP_HW, PIEAPP_HW, C, generator=gen)
+    raw = torch.cat([ref] + [(ref + s * torch.randn(ref.shape, generator=gen)).clamp(0, 1)
+                             for s in (0.02, 0.03)], dim=1)
+    extract = make_extract_fn(PatchSampler(), ExtractConfig(
+        patch_count=PIEAPP_PATCHES, patch_dim=P, gather_dtype="float32"))
+    patches, pos, scales = extract(raw.to(CARD), gen)
+    qs = torch.rand(2, generator=gen)
+    out = {}
+    for dev in ("cpu", CARD):
+        model = copy.deepcopy(base).to(dev)
+        adamw = Optimizer("AdamW", lambda count: torch.tensor(1e-3), weight_decay=0.01)
+        state = adamw.init({n: p.detach() for n, p in model.named_parameters()})
+        step = make_train_step_on_patches(cfg, adamw, compute_dtype=torch.float32,
+                                          is_pairwise=True, use_pref_module=True)
+        metrics, q = step(model, state, build_freeze_mask(model, False), patches.to(dev),
+                          pos.to(dev), scales, qs.to(dev), 2, (1.0, 1.0, 1.0))
+        out[dev] = {"loss": float(metrics["loss"]), "p": float(model.pref_module.p.detach()),
+                    "preference": q.cpu().tolist()}
+        del model, state
+    return {"cpu": out["cpu"], "card": out[CARD],
+            "loss_err": abs(out[CARD]["loss"] - out["cpu"]["loss"]),
+            "p_err": abs(out[CARD]["p"] - out["cpu"]["p"])}
+
+
+def bare_pairwise_rate():
+    """Triplets/s of the bare pairwise step (extraction, forward, backward,
+    AdamW) at batch 12, 256 patches, bf16, on random 256x256 images already
+    on the card: 5 timed steps after one warm-up."""
+    cfg = _pieapp_cfg()
+    model = init_vtamiq_params(cfg, torch.Generator().manual_seed(SEED)).to(CARD)
+    attach_preference_module(model)
+    adamw = Optimizer("AdamW", lambda count: torch.tensor(5e-5), weight_decay=0.01)
+    state = adamw.init({n: p.detach() for n, p in model.named_parameters()})
+    step = make_train_step(cfg, PatchSampler(), ExtractConfig(patch_count=PIEAPP_PATCHES,
+                                                              patch_dim=P), adamw,
+                           is_pairwise=True, use_pref_module=True)
+    gen = torch.Generator().manual_seed(SEED)
+    raw = torch.rand(PIEAPP_BATCH, 3, PIEAPP_HW, PIEAPP_HW, C, generator=gen).to(CARD)
+    qs = torch.rand(PIEAPP_BATCH, generator=gen).to(CARD)
+    model_gen = torch.Generator(device=CARD).manual_seed(SEED)
+    mask = build_freeze_mask(model, False)
+    times = []
+    for i in range(6):
+        t0 = time.perf_counter()
+        metrics, _ = step(model, state, mask, raw, qs, PIEAPP_BATCH, (1.0, 1.0, 1.0), gen,
+                          model_gen)
+        float(metrics["loss"])  # synchronizes
+        if i:
+            times.append(time.perf_counter() - t0)
+    return PIEAPP_BATCH / float(np.median(times))
+
+
+def phase_engine_pieapp(card, root, png):
+    """The PieAPP pretraining recipe through engine.train(): ViT-B/16 6
+    layers, 8 registers, from a synthetic ViT-B_16-layout npz (12 blocks,
+    14x14 positional grid, resized to 24x24), the preference module on,
+    batch 12, 256 patches, AdamW, bf16; 140 references of 3 pairs split
+    130 / 5 / 5; one epoch, then a resumed epoch under torch.profiler."""
+    t0 = time.perf_counter()
+    vit_npz = f"{root}/ViT-B_16.npz"
+    with engine_configs() as C:
+        C._DATASET_REGISTRY[C.DATASET_PIEAPP_TRAIN] = (
+            _subclass(datasets.PieAPPTrainPairwise, root,
+                      num_dist_images=PIEAPP_PAIRS_PER_REF),
+            C.setup_split_config(*PIEAPP_SPLIT))
+        g = C.global_config
+        g.update(dataset=C.DATASET_PIEAPP_TRAIN, dataset_test=None, device=CARD,
+                 do_train=True, do_val=True, do_test=True, is_debug=False, num_epochs=1,
+                 seed=SEED, compute_dtype="bfloat16", optimizer="AdamW", save_optimizer=True,
+                 use_pref_module=True, vit_weights_path=vit_npz,
+                 allow_use_full_dataset=False, allow_use_full_dataset_test=False,
+                 output_dir=f"{root}/out_pieapp", is_verbose=False, config_validated=False)
+        _set_loaders(C, PIEAPP_BATCH, PIEAPP_PATCHES)
+        cfg = C.build_model_config()
+        npz_grid = int(math.isqrt(np.load(vit_npz)[
+            "Transformer/posembed_input/pos_embedding"].shape[1] - 1))
+
+        gather_kernel.launches = 0
+        flash_kernel.reset_launches()
+        test = engine.train()
+        launches, flash_launches = gather_kernel.launches, _flash_counts()
+        stats = {k: list(v) for k, v in engine.last_run_stats.items()}
+        out_dir = g["output_dir_final"]
+        latest = os.path.join(out_dir, "latest.npz")
+        first = load_checkpoint(latest)
+        with open(os.path.join(out_dir, "scalars.jsonl")) as f:
+            scalars = [json.loads(line) for line in f]
+
+        # resume for one more epoch, train only, profiled; the preference
+        # module as the resumed run starts training
+        resumed_p = {}
+        do_training = engine.do_training
+
+        def capture(train_step, params, *args, **kwargs):
+            resumed_p["p"] = params.pref_module.p.detach().cpu().clone()
+            return do_training(train_step, params, *args, **kwargs)
+
+        g.update(resume_checkpoint_file=latest, num_epochs=2, do_val=False, do_test=False,
+                 config_validated=False)
+        gather_kernel.launches = 0
+        flash_kernel.reset_launches()
+        engine.do_training = capture
+        try:
+            t1 = time.perf_counter()
+            _, idle, device_events = device_idle_share(engine.train)
+            profiled_s = time.perf_counter() - t1
+        finally:
+            engine.do_training = do_training
+        resume_launches, resume_flash = gather_kernel.launches, _flash_counts()
+        resume_stats = list(engine.last_run_stats["train"])
+        resumed = load_checkpoint(os.path.join(g["output_dir_final"], "latest.npz"))
+
+    bare = bare_pairwise_rate()
+    fp32 = pairwise_card_vs_cpu(vit_npz)
+    steps = sum(s["batches"] for phase in stats.values() for s in phase)
+    pref = first.get(engine_config.PREF_MODULE_STATE_DICT, {})
+    p1 = torch.from_numpy(np.asarray(pref["p"], np.float32)) if "p" in pref else None
+    gates = {
+        "checkpoint_holds_pref_module": p1 is not None and not any(
+            k.startswith("pref_module") for k in first[engine_config.MODEL_STATE_DICT]),
+        "resume_reloads_pref_module_bit_for_bit": p1 is not None and "p" in resumed_p
+        and torch.equal(resumed_p["p"], p1),
+        "p_moved_from_6": p1 is not None and float(p1) != 6.0,
+        "gather_one_launch_per_step": launches == steps
+        and resume_launches == sum(s["batches"] for s in resume_stats),
+        # 265 tokens stay below the flash threshold: the quadratic form
+        "no_flash_below_threshold": PIEAPP_PATCHES < FLASH_ATTENTION_THRESHOLD
+        and not any(flash_launches.values()) and not any(resume_flash.values()),
+        "losses_finite": bool(scalars) and all(np.isfinite(x["value"]) for x in scalars
+                                               if x["tag"].endswith("loss")),
+        "resume_starts_at_epoch_2": [s["epoch"] for s in resume_stats] == [2],
+        "fp32_step_loss_card_vs_cpu": fp32["loss_err"] <= PAIRWISE_LOSS_TOL,
+        "fp32_step_p_card_vs_cpu": fp32["p_err"] <= PREF_P_TOL,
+        "fp32_step_p_moved": fp32["card"]["p"] != 6.0,
+        "vit_npz_grid_resized": npz_grid == 14 and cfg.vit.pos_grid == 24,
+    }
+    train = _rate(stats["train"])
+    out = {"phase": "engine_pieapp", "card": card,
+           "config": f"PieAPP pretraining (run tag 2e-12b-256p) through engine.train(): "
+                     f"ViT-B/16 6 layers, 8 registers, DiffNet head, the preference module "
+                     f"(p init 6), {PIEAPP_PATCHES} patches, uniform CAPS, batch "
+                     f"{PIEAPP_BATCH}, AdamW, bf16; ViT weights from a synthetic "
+                     f"ViT-B_16-layout npz (12 blocks, {npz_grid}x{npz_grid} grid -> "
+                     f"{cfg.vit.pos_grid}x{cfg.vit.pos_grid}), seeded",
+           "data": {"layout": f"PieAPP ({'PNG' if png else 'PNG through PIL'}), "
+                              f"{PIEAPP_HW}x{PIEAPP_HW}",
+                    "references": PIEAPP_REFS, "pairs_per_reference": PIEAPP_PAIRS_PER_REF,
+                    "split_refs": [len(x) for x in PIEAPP_SPLIT],
+                    "train_triplets": train["pairs"], "val_triplets": _rate(stats["val"])["pairs"],
+                    "test_triplets_per_repeat": stats["test"][0]["pairs"],
+                    "test_repeats": len(stats["test"]),
+                    "cut": "3 of the 483 pairs a reference, one epoch and a resumed one"},
+           "train": {**train, "triplets_per_s": train["pairs_per_s"]},
+           "bare_step_triplets_per_s": bare,
+           "engine_over_bare": train["pairs_per_s"] / bare,
+           "val": _rate(stats["val"]), "test": _rate(stats["test"]),
+           "resumed_epoch": {**_rate(resume_stats), "profiled": True,
+                             "device_idle_share": idle, "device_events": device_events,
+                             "train_call_s_with_profiler": profiled_s},
+           "pref_p": {"after_epoch_1": None if p1 is None else float(p1),
+                      "after_epoch_2": float(np.asarray(resumed.get(
+                          engine_config.PREF_MODULE_STATE_DICT, {}).get("p", np.nan)))},
+           "fp32_pairwise_step_card_vs_cpu": {**fp32, "tolerances": {
+               "loss": PAIRWISE_LOSS_TOL, "p": PREF_P_TOL}, "tf32": False},
+           "gather_launches": launches, "steps": steps,
+           "gather_launches_resumed": resume_launches, "flash_launches": flash_launches,
+           "flash_launches_resumed": resume_flash,
+           "test_correlations": test, "phase_s": time.perf_counter() - t0, "gates": gates}
+    emit(out)
+    if not all(gates.values()):
+        raise AssertionError(f"engine_pieapp gates failed: {gates}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 14. model_extras: Houlsby adapters and the PU input mode, card vs CPU
+# ---------------------------------------------------------------------------
+
+EXTRAS_LOSS_TOL = 1e-4     # fp32 card vs CPU on the same patches
+EXTRAS_Q_TOL = 1e-3
+
+
+def _step_card_vs_cpu(cfg, base, patches, pos, qs, mask_of, sampler_note):
+    """One fp32 train step (AdamW, rank + pears + MAE) on the card and on
+    the CPU from the same weights and patches -> losses, q and errors."""
+    out = {}
+    for dev in ("cpu", CARD):
+        model = copy.deepcopy(base).to(dev)
+        adamw = Optimizer("AdamW", lambda count: torch.tensor(1e-3), weight_decay=0.01)
+        state = adamw.init({n: p.detach() for n, p in model.named_parameters()})
+        step = make_train_step_on_patches(cfg, adamw, weighted_loss=True,
+                                          compute_dtype=torch.float32)
+        metrics, q = step(model, state, mask_of(model), patches.to(dev), pos.to(dev), None,
+                          qs.to(dev), qs.shape[0], (1.0, 1.0, 1.0))
+        out[dev] = {"loss": float(metrics["loss"]), "q": q.cpu()}
+        del model, state
+    return {"what": sampler_note, "loss_cpu": out["cpu"]["loss"], "loss_card": out[CARD]["loss"],
+            "loss_err": abs(out[CARD]["loss"] - out["cpu"]["loss"]),
+            "q_err": float((out[CARD]["q"] - out["cpu"]["q"]).abs().max()),
+            "q_card": out[CARD]["q"].tolist()}
+
+
+def phase_model_extras(card, refs, dists):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    raw = torch.from_numpy(np.stack([np.stack([r, d]) for r, d in zip(refs, dists)]))
+    qs = torch.from_numpy(np.random.default_rng(SEED).uniform(0, 1, PAIRS).astype(np.float32))
+    gen = torch.Generator().manual_seed(SEED + 4)
+
+    # Houlsby adapters: encoder frozen, adapters trainable (the default
+    # freeze dict), 2 pairs at 500 patches
+    cfg_a = VTAMIQConfig(vit=get_vit_config(num_keep_layers=6, num_extra_tokens=8,
+                                            num_adapters=1))
+    base = init_vtamiq_params(cfg_a, torch.Generator().manual_seed(SEED))
+    extract = make_extract_fn(PatchSampler(), ExtractConfig(patch_count=N, patch_dim=P,
+                                                            gather_dtype="float32"))
+    patches, pos, _ = extract(raw[:2].to(CARD), gen)
+    frozen = lambda m: build_freeze_mask(m, True, engine_config.freeze_dict_vtamiq)
+    adapters = _step_card_vs_cpu(cfg_a, base, patches, pos, qs[:2], frozen,
+                                 "ViT-B/16 6 layers + 1 Houlsby adapter a layer, encoder "
+                                 f"frozen, 2 pairs, {N} patches, fp32")
+    adapters["trainable_adapter_tensors"] = sum(
+        1 for n, v in frozen(base).items() if ".adapters." in n and v > 0)
+
+    # PU input: config 3's weighted sampler (MAGNITUDE), PU-encoded
+    cfg = VTAMIQConfig(vit=get_vit_config(num_keep_layers=6, num_extra_tokens=8))
+    base = init_vtamiq_params(cfg, torch.Generator().manual_seed(SEED))
+    magnitude = weighted_sampler(sampling.DIFF_TYPE_MAGNITUDE)
+    pu_cfg = dict(patch_count=N, patch_dim=P, norm_mean=None, norm_std=None,
+                  pu_display_encode=True)
+    # (a) the bf16 train step of config 3, batch 8, its gather recorded
+    model = copy.deepcopy(base).to(CARD)
+    adamw = Optimizer("AdamW", lambda count: torch.tensor(5e-5), weight_decay=0.01)
+    state = adamw.init({n: p.detach() for n, p in model.named_parameters()})
+    step = make_train_step(cfg, magnitude, ExtractConfig(**pu_cfg), adamw)
+    calls, gather = [], gather_kernel.gather_patches
+
+    def recorded(*args):
+        out = gather(*args)
+        calls.append((args, out))
+        return out
+
+    gather_kernel.gather_patches = recorded
+    gather_kernel.launches = 0
+    try:
+        metrics, _ = step(model, state, build_freeze_mask(model, False), raw.to(CARD),
+                          qs.to(CARD), PAIRS, (1.0, 1.0, 1.0), gen,
+                          torch.Generator(device=CARD).manual_seed(SEED))
+        bf16_loss = float(metrics["loss"])
+        pu_launches = gather_kernel.launches
+    finally:
+        gather_kernel.gather_patches = gather
+    del model, state, step
+    args, got = calls[0]
+    want = gather_kernel.gather_patches_plain(*args)
+    pu_gather = {"equal": bool(torch.equal(got, want)), "out_dtype": str(got.dtype),
+                 "normalized": args[4] is not None,
+                 "max_abs_err": float((got.float() - want.float()).abs().max()),
+                 "shape": list(got.shape)}
+    # (b) fp32 q, card vs CPU on the same card-sampled PU patches
+    extract = make_extract_fn(magnitude, ExtractConfig(**pu_cfg, gather_dtype="float32"))
+    patches, pos, _ = extract(raw[:2].to(CARD), gen)
+    pu = _step_card_vs_cpu(cfg, base, patches, pos, qs[:2], lambda m: build_freeze_mask(m, False),
+                           f"config 3 weighted CAPS (MAGNITUDE) with use_pu, 2 pairs, {N} "
+                           "patches, fp32")
+    gates = {"adapters_loss": adapters["loss_err"] <= EXTRAS_LOSS_TOL,
+             "adapters_q": adapters["q_err"] <= EXTRAS_Q_TOL,
+             "adapters_trainable": adapters["trainable_adapter_tensors"] == 6 * 8,
+             "pu_gather_equals_plain": pu_gather["equal"] and pu_gather["out_dtype"] ==
+             "torch.bfloat16" and not pu_gather["normalized"],
+             "pu_bf16_step_one_gather_finite": pu_launches == 1 and bool(np.isfinite(bf16_loss)),
+             "pu_loss": pu["loss_err"] <= EXTRAS_LOSS_TOL, "pu_q": pu["q_err"] <= EXTRAS_Q_TOL}
+    out = {"phase": "model_extras", "card": card, "adapters": adapters,
+           "pu": {**pu, "bf16_step_loss": bf16_loss, "bf16_step_gather_launches": pu_launches,
+                  "bf16_step_gather_vs_plain": pu_gather},
+           "tolerances": {"loss": EXTRAS_LOSS_TOL, "q": EXTRAS_Q_TOL}, "tf32": False,
+           "gates": gates}
+    emit(out)
+    if not all(gates.values()):
+        raise AssertionError(f"model_extras gates failed: {gates}")
+    return out
+
+
 def main():
     name, smi = phase_device()
     phase_build()
@@ -1484,7 +1892,9 @@ def main():
     phase_server(scorer, refs, dists)
     del scorer
     long_launches, fp32_fwd_launches = phase_scorer_5000p(smi, refs, dists)
-    train_launches, split_launches, fp32_launches = phase_train_5000p(smi, refs, dists)
+    train_launches, split_launches, fp32_launches, remat_launches = phase_train_5000p(
+        smi, refs, dists)
+    phase_model_extras(smi, refs, dists)
     # the datasets are written only now, so that no timed phase above
     # shares the host's cores with the writers
     png = native_io.decodes("png")
@@ -1495,6 +1905,7 @@ def main():
               "trees": sorted(writers)})
         engine3 = phase_engine_config3(smi, data_root, png, bare_config3_pairs_per_s)
         engine5 = phase_engine_config5(smi, data_root, png)
+        pieapp = phase_engine_pieapp(smi, data_root, png)
     finally:
         for proc in writers.values():
             if proc.poll() is None:
@@ -1529,6 +1940,12 @@ def main():
         "launches_engine_config3_on": "engine_config3: every train, val and test step",
         "launches_weighted_caps": weighted_launches,
         "launches_weighted_caps_on": "one config 2 (weighted CAPS) scorer batch of 8 pairs",
+        "launches_engine_pieapp": pieapp["gather_launches"],
+        "launches_engine_pieapp_on": "engine_pieapp: every train, val and test step of the "
+                                     "first run (K = 3: 36 images a train step)",
+        "launches_remat": remat_launches["gather"],
+        "launches_remat_on": "one bf16 train_5000p forward and backward with remat (its "
+                             "patches are cut before it)",
         "exact": True, "max_abs_err": k["max_abs_err"],
         "ms": k["device_ms_back_to_back"], "ms_is": "device time, back-to-back launches",
         "device_ms_l2_flushed": k["device_ms_l2_flushed"],
@@ -1544,6 +1961,13 @@ def main():
             "launches_on": launches_on[kname], "max_abs_err": row["max_abs_err"],
             "launches_engine_config5": engine5["flash_launches"].get(kname, 0),
             "launches_engine_config5_on": "engine_config5: PIPAL train, LIVE and CSIQ test",
+            "launches_engine_pieapp": pieapp["flash_launches"][kname],
+            "launches_engine_pieapp_on": "engine_pieapp: every train, val and test step of "
+                                         "the first run (256 patches stay below the flash "
+                                         "threshold)",
+            "launches_remat": remat_launches[kname],
+            "launches_remat_on": "one bf16 train_5000p forward and backward with remat (the "
+                                 "forward again in each layer's recompute)",
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "max_abs_err_fp32": row32["max_abs_err"], "ms_fp32": row32["ms"],

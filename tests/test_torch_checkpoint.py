@@ -110,12 +110,12 @@ def _filled_state(opt, module, seed):
 def test_port_checkpoint_loads_in_jax(tmp_path):
     from vtamiq_tpu.models.checkpoint import restore_opt_state as jrestore
     from vtamiq_tpu.train import optim as joptim
-    from vtamiq_tpu_torch.models.checkpoint import save_checkpoint
+    from vtamiq_tpu_torch.models.checkpoint import params_to_jax, save_checkpoint
     from vtamiq_tpu_torch.train import optim
     module = _small_module(5)
     opt, _ = optim.make_optimizer(ADAMW, 4)
     state = _filled_state(opt, module, 1)
-    save_checkpoint(str(tmp_path), "p.npz", {MODEL_STATE_DICT: module}, 3, 0.5,
+    save_checkpoint(str(tmp_path), "p.npz", {MODEL_STATE_DICT: params_to_jax(module)}, 3, 0.5,
                     opt_state=state, extra_meta={"w_mae": 0.25})
 
     ckpt = jload(str(tmp_path / "p.npz"))

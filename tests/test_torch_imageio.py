@@ -191,10 +191,8 @@ def test_build_without_codecs_raises_naming_the_library(images, monkeypatch):
         native_io.image_size(images["jpg"])
     with pytest.raises(native_io.CodecUnavailableError, match="img.png"):
         native_io.decode_batch([images["bmp"], images["png"]], [(H, W)] * 2)
-    # PIL's path divides by 255, as the JAX package's does
-    np.testing.assert_array_equal(
-        imageio.imread(images["png"]),
-        np.asarray(Image.open(images["png"]).convert("RGB"), np.float32) / 255.0)
+    # PIL's path scales as the native decoders do, by x * float32(1/255)
+    np.testing.assert_array_equal(imageio.imread(images["png"]), _pil(images["png"]))
 
     import builtins
     real_import = builtins.__import__
@@ -239,3 +237,17 @@ def test_save_rounds_like_the_jax_writer(tmp_path):
                                       _pil(str(tmp_path / f"j.{ext}")))
     with pytest.raises(ValueError, match="jpg"):
         synth._save(img, str(tmp_path / "t.jpg"))
+
+
+def test_pil_jpeg_is_bit_equal_to_the_jax_native_decoder(images, monkeypatch):
+    """Where the port's build has no libjpeg (the card machine), a JPEG goes
+    through PIL; it decodes to the floats of the JAX package's native
+    decoder (libjpeg here) bit for bit, not to JAX's own PIL path's x / 255."""
+    _use_build(monkeypatch, "-DVTAMIQ_WITHOUT_JPEG")
+    assert "jpeg" not in native_io.codecs()
+    got = imageio.imread(images["jpg"])
+    want = jnative.decode_rgb(images["jpg"])
+    assert got.dtype == np.float32 and got.shape == (H, W, 3)
+    np.testing.assert_array_equal(got, want)
+    u8 = np.asarray(Image.open(images["jpg"]).convert("RGB"), np.float32)
+    assert np.any(u8 / np.float32(255.0) != want)  # x / 255 would not be equal

@@ -415,3 +415,111 @@ def test_engine_config3_path_two_steps_on_card(tmp_path):
             getattr(C, n).update(v)
         C._DATASET_REGISTRY.clear()
         C._DATASET_REGISTRY.update(registry)
+
+
+# --------------------------------------------------------------------------
+# the PieAPP pretraining recipe and the model extras on the card
+# --------------------------------------------------------------------------
+
+def _small_cfg(**vit_over):
+    from vtamiq_tpu_torch.models.configs import VTAMIQConfig, get_vit_config
+    vit = get_vit_config(**{**dict(num_keep_layers=2, num_extra_tokens=2, hidden_size=64,
+                                   mlp_dim=128, num_heads=1), **vit_over})
+    return VTAMIQConfig(vit=vit, num_rgs=1, num_rcabs=1, ca_reduction=4)
+
+
+@pytest.mark.gpu
+def test_pu_gather_equals_plain_on_card():
+    """The use_pu mode's gather: the PU-encoded fp32 image, no
+    normalization, bf16 out, rounded once by the kernel as it stores each
+    patch; bit for bit against the plain version, and against the encoded
+    image rounded to bf16 and then gathered."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the gather kernel has no CPU mode")
+    from vtamiq_tpu_torch.utils.color_spaces import pu_display_encode_torch
+    gen = torch.Generator().manual_seed(4)
+    m, h, w, n = 6, 256, 256, 256
+    pu = pu_display_encode_torch(torch.rand(m, h, w, 3, generator=gen).cuda())
+    ti = torch.randint(0, h - P + 1, (m, n), generator=gen, dtype=torch.int32).cuda()
+    tj = torch.randint(0, w - P + 1, (m, n), generator=gen, dtype=torch.int32).cuda()
+    before = gather_kernel.launches
+    got = gather_kernel.gather_patches(pu, ti, tj, P, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert gather_kernel.launches == before + 1
+    assert torch.equal(got, gather_kernel.gather_patches_plain(pu, ti, tj, P,
+                                                               out_dtype=torch.bfloat16))
+    rounded = pu.to(torch.bfloat16).float()
+    assert torch.equal(got, gather_kernel.gather_patches_plain(rounded, ti, tj, P).to(
+        torch.bfloat16))
+
+
+@pytest.mark.gpu
+def test_pairwise_step_with_preference_module_on_card():
+    """One fp32 pairwise train step (K = 3, the preference module on) on
+    the card against the same step on the CPU from the same weights and
+    patches, TF32 off: loss to 1e-4, p after the step to 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import copy
+    from vtamiq_tpu_torch.models.preference import attach_preference_module
+    from vtamiq_tpu_torch.models.vtamiq import init_vtamiq_params
+    from vtamiq_tpu_torch.train import optim, steps
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _small_cfg()
+    base = init_vtamiq_params(cfg, torch.Generator().manual_seed(1))
+    attach_preference_module(base, 6.0)
+    gen = torch.Generator().manual_seed(2)
+    patches = torch.rand(3, 3, 64, P, P, 3, generator=gen) * 2 - 1
+    pos = torch.rand(3, 3, 64, 2, generator=gen)
+    qs = torch.rand(3, generator=gen)
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = copy.deepcopy(base).to(device)
+        opt = optim.Optimizer("AdamW", lambda c: torch.tensor(1e-3), weight_decay=0.01)
+        state = opt.init({n: p.detach() for n, p in model.named_parameters()})
+        step = steps.make_train_step_on_patches(cfg, opt, compute_dtype=torch.float32,
+                                                is_pairwise=True, use_pref_module=True)
+        metrics, q = step(model, state, optim.build_freeze_mask(model, False),
+                          patches.to(device), pos.to(device), None, qs.to(device), 3,
+                          (1.0, 1.0, 1.0))
+        out[device] = (float(metrics["loss"]), float(model.pref_module.p.detach()), q.cpu())
+    (l_cpu, p_cpu, q_cpu), (l_card, p_card, q_card) = out["cpu"], out["cuda"]
+    assert abs(l_card - l_cpu) <= 1e-4 and abs(p_card - p_cpu) <= 1e-6 and p_card != 6.0
+    assert float((q_card - q_cpu).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_remat_step_gradients_equal_on_card():
+    """A bf16 train forward and backward through the flash kernels with
+    DropPath active: with remat (each encoder layer recomputed in the
+    backward, its flash forward launched again) and without, every
+    gradient bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import copy
+    import dataclasses
+    from vtamiq_tpu_torch.models.vtamiq import init_vtamiq_params, vtamiq_forward
+    from vtamiq_tpu_torch.ops import flash_kernel
+    from vtamiq_tpu_torch.ops.attention import make_attention_fn
+    cfg = _small_cfg(path_drop_prob=0.3, vit_path_drop_active=True, num_layers=3,
+                     num_keep_layers=3)
+    base = init_vtamiq_params(cfg, torch.Generator().manual_seed(3)).cuda()
+    gen = torch.Generator().manual_seed(4)
+    patches = (torch.rand(2, 2, 300, P, P, 3, generator=gen) * 2 - 1).cuda()
+    pos = torch.rand(2, 2, 300, 2, generator=gen).cuda()
+    grads, fwd = [], []
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, vit=dataclasses.replace(cfg.vit, remat=remat))
+        model = copy.deepcopy(base)
+        flash_kernel.reset_launches()
+        q = vtamiq_forward(model, c, patches, pos, train=True,
+                           generator=torch.Generator(device="cuda").manual_seed(5),
+                           attention_fn=make_attention_fn(threshold=0))
+        q.sum().backward()
+        torch.cuda.synchronize()
+        fwd.append(flash_kernel.launches["flash_fwd"])
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    assert fwd == [2, 4]  # layers - 1, then again in the recompute
+    for n, g in grads[0].items():
+        assert (g is None) == (grads[1][n] is None), n
+        assert g is None or torch.equal(g, grads[1][n]), n

@@ -174,9 +174,19 @@ def test_lookups_match_jax():
 
 
 def test_adapters_raise():
+    """Adapters build (tests/test_torch_model_extras.py holds them to JAX);
+    an adapter index the layers do not have raises, where the JAX package
+    would run the layer without one."""
     _, tcfg = configs()
-    with pytest.raises(NotImplementedError, match="adapters"):
-        tvit.ViT(dataclasses.replace(tcfg.vit, num_adapters=1))
+    vit = tvit.ViT(dataclasses.replace(tcfg.vit, num_adapters=1))
+    assert "encoder.layers.layer_0.adapters.adapter_0.attn.down.kernel" in dict(
+        vit.named_parameters())
+    tvit.init_params_(vit, torch.Generator().manual_seed(0))
+    patches = torch.zeros(1, 3, 16, 16, 3)
+    pos = torch.full((1, 3, 2), 0.5)
+    vit(patches, pos, compute_dtype=torch.float32, adapter_num=0)
+    with pytest.raises(ValueError, match="adapter_num 1"):
+        vit(patches, pos, compute_dtype=torch.float32, adapter_num=1)
 
 
 # ---------------------------------------------------------------------------
@@ -291,9 +301,15 @@ def test_encoder_drop_path_follows_vit_path_drop_active(active):
 
 
 def test_remat_raises_in_training_only():
+    """Remat no longer raises: the same outputs as without it, in eval and
+    in training (the gradients: tests/test_torch_model_extras.py)."""
     jcfg, tcfg = configs()
     tp = carried(jvtamiq.init_vtamiq_params(jax.random.PRNGKey(14), jcfg), tvtamiq.VTAMIQ(tcfg))
     cfg = dataclasses.replace(tcfg, vit=dataclasses.replace(tcfg.vit, remat=True))
     assert torch.equal(_forward(tp, cfg, False), _forward(tp, tcfg, False))
-    with pytest.raises(NotImplementedError, match="remat"):
-        _forward(tp, cfg, True, seed=0)
+    patches, pos, mask, _ = inputs(11)
+    vit = dataclasses.replace(cfg.vit, path_drop_prob=0.5, vit_path_drop_active=True)
+    outs = [tvtamiq.vtamiq_forward(tp, dataclasses.replace(cfg, vit=dataclasses.replace(
+        vit, remat=remat)), t(patches), t(pos), patch_mask=t(mask), compute_dtype=torch.float32,
+        train=True, generator=torch.Generator().manual_seed(0)) for remat in (True, False)]
+    assert outs[0].requires_grad and torch.equal(outs[0], outs[1])

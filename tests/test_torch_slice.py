@@ -187,7 +187,8 @@ def test_default_device_is_the_card():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="quantize_int8"):
         VTAMIQScorer(cfg=CFG, device="cpu", quantize_int8=True)
-    with pytest.raises(NotImplementedError, match="ViT npz"):
+    # ImageNet weights load (tests/test_torch_vit_npz.py); a missing file raises
+    with pytest.raises(FileNotFoundError):
         VTAMIQScorer.from_vit_npz("missing.npz", cfg=CFG, device="cpu")
 
 

@@ -28,13 +28,15 @@ _warned_native = False
 
 
 def _pil_read(path: str, reason: str) -> np.ndarray:
+    """PIL's decode, scaled as the native decoder scales: ``x *
+    float32(1/255)`` (``x / 255`` would differ by one rounding)."""
     try:
         from PIL import Image
     except ImportError:
         raise IOError(f"imread: cannot decode [{path}]: {reason}, and PIL is not "
                       f"installed") from None
     with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"), dtype=np.float32) / 255.0
+        return np.asarray(im.convert("RGB"), dtype=np.float32) * np.float32(1.0 / 255.0)
 
 
 def imread(path: str, is_hdr: bool = False) -> np.ndarray:

@@ -14,7 +14,8 @@ Label files are always written at the dataset's true cardinality; image
 files can be restricted to the first ``image_refs`` reference images, and
 callers then use splits confined to those refs. Each dataset directory gets
 a ``.synth_done`` marker recording the parameters; a matching marker skips
-regeneration.
+regeneration. ``write_vit_npz`` writes random ImageNet-ViT weights in the
+``ViT-B_16.npz`` key layout.
 
     python -m vtamiq_tpu_torch.data.synth --root /tmp/iqa --datasets tid2013,kadid10k
 """
@@ -33,7 +34,8 @@ import numpy as np
 __all__ = ["make_base_image", "apply_distortion", "severity_to_quality",
            "DISTORTION_BANK", "write_bmp", "write_png",
            "generate_tid2013", "generate_kadid10k", "generate_live", "generate_csiq",
-           "generate_pipal", "generate_pieapp", "generate_kadis700k", "generate_all"]
+           "generate_pipal", "generate_pieapp", "generate_kadis700k", "generate_all",
+           "vit_npz_arrays", "write_vit_npz"]
 
 
 # --------------------------------------------------------------------------
@@ -695,6 +697,48 @@ def generate_kadis700k(root: str, num_refs: int = 120, num_levels: int = 5,
 # --------------------------------------------------------------------------
 # orchestrator + CLI
 # --------------------------------------------------------------------------
+
+def vit_npz_arrays(hidden: int = 768, heads: int = 12, mlp: int = 3072, layers: int = 12,
+                   grid: int = 14, patch: int = 16, seed: int = 0) -> dict:
+    """Random ImageNet-ViT weights in the key layout of the jax-format
+    ``ViT-B_16.npz`` files (the defaults are B/16 at 224 pixels: 12 blocks,
+    a 14x14 positional grid): dense kernels (in, out), attention kernels
+    (H, heads, d) and (heads, d, H), the patch kernel HWIO. Weights are
+    normal with std 0.02, LayerNorm scales near 1, drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    d = hidden // heads
+
+    def w(*shape, std=0.02, mean=0.0):
+        return (mean + std * rng.standard_normal(shape)).astype(np.float32)
+
+    out = {"embedding/kernel": w(patch, patch, 3, hidden), "embedding/bias": w(hidden),
+           "cls": w(1, 1, hidden),
+           "Transformer/posembed_input/pos_embedding": w(1, 1 + grid * grid, hidden),
+           "Transformer/encoder_norm/scale": w(hidden, std=0.1, mean=1.0),
+           "Transformer/encoder_norm/bias": w(hidden)}
+    for i in range(layers):
+        root = f"Transformer/encoderblock_{i}"
+        attn = f"{root}/MultiHeadDotProductAttention_1"
+        for name in ("query", "key", "value"):
+            out[f"{attn}/{name}/kernel"] = w(hidden, heads, d)
+            out[f"{attn}/{name}/bias"] = w(heads, d)
+        out[f"{attn}/out/kernel"] = w(heads, d, hidden)
+        out[f"{attn}/out/bias"] = w(hidden)
+        out[f"{root}/MlpBlock_3/Dense_0/kernel"] = w(hidden, mlp)
+        out[f"{root}/MlpBlock_3/Dense_0/bias"] = w(mlp)
+        out[f"{root}/MlpBlock_3/Dense_1/kernel"] = w(mlp, hidden)
+        out[f"{root}/MlpBlock_3/Dense_1/bias"] = w(hidden)
+        for ln in ("LayerNorm_0", "LayerNorm_2"):
+            out[f"{root}/{ln}/scale"] = w(hidden, std=0.1, mean=1.0)
+            out[f"{root}/{ln}/bias"] = w(hidden)
+    return out
+
+
+def write_vit_npz(path: str, **kwargs) -> str:
+    """``vit_npz_arrays(**kwargs)`` written as an uncompressed npz."""
+    np.savez(path, **vit_npz_arrays(**kwargs))
+    return path
+
 
 def generate_all(root: str, datasets: Iterable[str] = ("tid2013",),
                  full: bool = False) -> dict:

@@ -24,6 +24,7 @@ from .data.buckets import assign_bucket, pad_to_bucket
 from .models.checkpoint import (MODEL_STATE_DICT, load_checkpoint, merge_params,
                                 params_from_jax)
 from .models.configs import VTAMIQConfig, get_vit_config
+from .models.vit import load_vit_npz
 from .models.vtamiq import VTAMIQ, init_vtamiq_params, vtamiq_forward
 from .ops.attention import choose_attention_fn
 from .ops.sampling import PatchSampler
@@ -133,9 +134,15 @@ class VTAMIQScorer:
         return scorer
 
     @classmethod
-    def from_vit_npz(cls, npz_path: str, cfg: Optional[VTAMIQConfig] = None, **kwargs):
-        raise NotImplementedError("loading ImageNet ViT npz weights is not ported to "
-                                  "vtamiq_tpu_torch yet; see ROADMAP.md")
+    def from_vit_npz(cls, npz_path: str, cfg: Optional[VTAMIQConfig] = None,
+                     **kwargs) -> "VTAMIQScorer":
+        """A scorer whose ViT holds ImageNet weights from a ``ViT-B_16.npz``
+        layout file (``models/vit.py::load_vit_npz``); the head keeps its
+        seeded initial weights."""
+        scorer = cls(cfg=cfg, **kwargs)
+        with np.load(npz_path) as npz:
+            load_vit_npz(npz, scorer.cfg.vit, scorer.params.vit)
+        return scorer
 
     # -- scoring --------------------------------------------------------------
 

@@ -37,21 +37,20 @@ OPT_LEAVES = "__opt_leaves__"
 
 
 def save_checkpoint(output_dir: str, filename: str,
-                    models: Mapping[str, nn.Module],
+                    models: Mapping[str, Mapping[str, np.ndarray]],
                     epoch: int, srocc: float, opt_state: Optional[Mapping] = None,
                     extra_meta: Optional[Dict] = None) -> str:
     """Write a checkpoint. ``models`` maps a state-dict name
-    (MODEL_STATE_DICT, PREF_MODULE_STATE_DICT) to a module; ``opt_state``:
+    (MODEL_STATE_DICT, PREF_MODULE_STATE_DICT) to a module's leaves as
+    ``params_to_jax`` gives them; ``opt_state``:
     the port optimizer's state, stored as the JAX package's optax leaves
     (``opt_state_leaves``). Written under a temporary name and moved into
     place."""
     os.makedirs(output_dir, exist_ok=True)
     path = os.path.join(output_dir, filename)
     flat: Dict[str, np.ndarray] = {}
-    for model_name, model in models.items():
-        if model is None:
-            continue
-        for k, v in params_to_jax(model).items():
+    for model_name, leaves in models.items():
+        for k, v in leaves.items():
             flat[f"{model_name}{_SEP}{k}"] = v
     if opt_state is not None:
         for i, leaf in enumerate(opt_state_leaves(opt_state)):

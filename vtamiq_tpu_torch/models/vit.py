@@ -11,28 +11,34 @@ numerics:
 - attention logits are stored in the matmul dtype unless
   ``attn_logits_fp32`` is set or the residual stream is fp32;
 - CLS takes positional slot 0; register tokens take no pos or scale
-  embedding; the last layer computes only the leading ``num_tokens`` queries.
+  embedding; the last layer computes only the leading ``num_tokens`` queries;
+- Houlsby adapters (``num_adapters``, reduction 4) follow the attention and
+  the MLP of each layer, before the LayerScale.
 
 Training: ``train=True`` with a ``torch.Generator`` (on the compute
 device) turns on the encoder DropPath when ``cfg.vit_path_drop_active``
 (timm semantics: a per-sample keep mask and a 1/keep rescale; the draws
-cannot match JAX's PRNG). ``attention_fn`` (``ops/attention.py``) replaces
-the quadratic attention of every layer but the last, whose ``q_len`` path
-stays quadratic, as in the JAX package.
+cannot match JAX's PRNG). Each layer's two keep masks are drawn before the
+layer runs, so ``cfg.remat`` (``torch.utils.checkpoint`` per encoder layer,
+the layer recomputed in the backward) gives the same masks, and the same
+gradients, as a run without it. ``attention_fn`` (``ops/attention.py``)
+replaces the quadratic attention of every layer but the last, whose
+``q_len`` path stays quadratic, as in the JAX package.
 
-Left out, against the JAX package: the token axis is not padded to a
-multiple of 128 (that is TPU lane alignment; masking of invalid keys is
-kept; the flash path pads to its own tile), Houlsby adapters raise at
-construction, and ``cfg.remat`` raises in training.
+The token axis is padded only on request (``pad_seq_to``; the JAX package
+pads to 128 by default, for TPU lanes), with the padding masked as keys.
+``load_vit_npz`` reads ImageNet ViT weights in the ``ViT-B_16.npz`` layout.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from .configs import INIT_NORM_STD, ViTConfig
@@ -73,6 +79,15 @@ class Mlp(nn.Module):
         self.fc2 = Dense(m, h)
 
 
+class Adapter(nn.Module):
+    """Houlsby adapter: ``down`` (H, H/4) and ``up`` (H/4, H)."""
+
+    def __init__(self, h: int, reduction: int = 4):
+        super().__init__()
+        self.down = Dense(h, h // reduction)
+        self.up = Dense(h // reduction, h)
+
+
 class EncoderLayer(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -84,6 +99,10 @@ class EncoderLayer(nn.Module):
         if cfg.use_layer_scale:
             self.ls1 = nn.Parameter(torch.empty(h))
             self.ls2 = nn.Parameter(torch.empty(h))
+        if cfg.num_adapters > 0:
+            self.adapters = nn.ModuleDict({
+                f"adapter_{a}": nn.ModuleDict({"attn": Adapter(h), "mlp": Adapter(h)})
+                for a in range(cfg.num_adapters)})
 
 
 class Embeddings(nn.Module):
@@ -115,10 +134,6 @@ class ViT(nn.Module):
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
-        if cfg.num_adapters > 0:
-            raise NotImplementedError(
-                "Houlsby adapters (ViTConfig.num_adapters > 0) are not ported "
-                "to vtamiq_tpu_torch yet; see ROADMAP.md")
         self.cfg = cfg
         self.embeddings = Embeddings(cfg)
         self.encoder = Encoder(cfg)
@@ -207,20 +222,22 @@ def dense(p: Dense, x: torch.Tensor, dtype=None, out_dtype=None) -> torch.Tensor
 def mhsa(p: Attention, x: torch.Tensor, num_heads: int,
          mask: Optional[torch.Tensor] = None, logits_fp32: bool = False,
          q_len: Optional[int] = None, mm_dtype=None,
-         attention_fn: Optional[Callable] = None) -> torch.Tensor:
+         attention_fn: Optional[Callable] = None, return_attention: bool = False):
     """Multi-head self-attention.
 
     x: (B, S, H); mask: optional (B, S) bool of valid keys (invalid keys get
     NEG_INF logits). ``q_len`` restricts the queries to the first q_len
     tokens (keys and values stay full): output (B, q_len, H).
     ``attention_fn(q, k, v, mask)`` on (B, S, heads, D) tensors replaces the
-    plain quadratic form when ``q_len`` is None."""
+    plain quadratic form when ``q_len`` is None and ``return_attention`` is
+    not set. ``return_attention``: return (out, probs) with the (B, heads,
+    S_q, S) attention probabilities in the matmul dtype."""
     b, s, h = x.shape
     d = h // num_heads
     dtype = x.dtype
     mm = mm_dtype or dtype
 
-    if attention_fn is not None and q_len is None:
+    if attention_fn is not None and q_len is None and not return_attention:
         q, k, v = (dense(dp, x, mm).reshape(b, s, num_heads, d)
                    for dp in (p.query, p.key, p.value))
         ctx = attention_fn(q, k, v, mask).reshape(b, s, h)
@@ -241,12 +258,19 @@ def mhsa(p: Attention, x: torch.Tensor, num_heads: int,
         logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
     probs = torch.softmax(logits.float(), dim=-1).to(mm)
     ctx = (probs @ v).transpose(1, 2).reshape(b, sq, h)
-    return dense(p.out, ctx, mm, out_dtype=dtype)
+    out = dense(p.out, ctx, mm, out_dtype=dtype)
+    return (out, probs) if return_attention else out
 
 
 def mlp_block(p: Mlp, x: torch.Tensor, mm_dtype=None) -> torch.Tensor:
     y = F.gelu(dense(p.fc1, x, mm_dtype))
     return dense(p.fc2, y, mm_dtype, out_dtype=x.dtype)
+
+
+def adapter_block(p: Adapter, x: torch.Tensor, mm_dtype=None) -> torch.Tensor:
+    """Houlsby adapter: x + up(gelu(down(x)))."""
+    y = F.gelu(dense(p.down, x, mm_dtype))
+    return x + dense(p.up, y, mm_dtype, out_dtype=x.dtype)
 
 
 def dropout(x: torch.Tensor, prob: float, generator: Optional[torch.Generator],
@@ -256,9 +280,14 @@ def dropout(x: torch.Tensor, prob: float, generator: Optional[torch.Generator],
     ``generator`` lives on x's device."""
     if prob <= 0.0:
         return x
-    keep = 1.0 - prob
     kept = torch.rand(x.shape if shape is None else shape, generator=generator,
-                      device=x.device) < keep
+                      device=x.device) < 1.0 - prob
+    return apply_keep_mask(x, kept, prob)
+
+
+def apply_keep_mask(x: torch.Tensor, kept: torch.Tensor, prob: float) -> torch.Tensor:
+    """x / keep where ``kept`` (broadcast to x), else 0; keep = 1 - prob."""
+    keep = 1.0 - prob
     return torch.where(kept, x / keep, torch.zeros_like(x))
 
 
@@ -268,28 +297,61 @@ def drop_path(x: torch.Tensor, prob: float, generator: Optional[torch.Generator]
     return dropout(x, prob, generator, (x.shape[0],) + (1,) * (x.dim() - 1))
 
 
+def drop_path_masks(x: torch.Tensor, cfg: ViTConfig, train: bool,
+                    generator: Optional[torch.Generator]) -> Optional[Tuple[torch.Tensor, ...]]:
+    """An encoder layer's two DropPath keep masks, (B, 1, 1) bool each
+    (after the attention, after the MLP), drawn from ``generator`` in that
+    order; None where DropPath does not act."""
+    if not (train and cfg.vit_path_drop_active and generator is not None
+            and cfg.path_drop_prob > 0.0):
+        return None
+    keep = 1.0 - cfg.path_drop_prob
+    return tuple(torch.rand((x.shape[0], 1, 1), generator=generator, device=x.device) < keep
+                 for _ in range(2))
+
+
+def _layer_adapter(p: EncoderLayer, adapter_num: int) -> Optional[nn.ModuleDict]:
+    if adapter_num < 0 or not hasattr(p, "adapters"):
+        return None
+    name = f"adapter_{adapter_num}"
+    if name not in p.adapters:
+        raise ValueError(f"adapter_num {adapter_num}: the layer has adapters "
+                         f"{list(p.adapters)}")
+    return p.adapters[name]
+
+
 def encoder_layer(p: EncoderLayer, x: torch.Tensor, cfg: ViTConfig, mask=None,
-                  q_len: Optional[int] = None, mm_dtype=None, train: bool = False,
-                  generator: Optional[torch.Generator] = None,
-                  attention_fn: Optional[Callable] = None) -> torch.Tensor:
-    """Pre-LN block: x += DP(LS1(MHSA(LN(x)))); x += DP(LS2(MLP(LN(x)))).
+                  q_len: Optional[int] = None, mm_dtype=None,
+                  keep_masks: Optional[Tuple[torch.Tensor, ...]] = None,
+                  attention_fn: Optional[Callable] = None, adapter_num: int = -1,
+                  return_attention: bool = False):
+    """Pre-LN block: x += DP(LS1(A(MHSA(LN(x))))); x += DP(LS2(A(MLP(LN(x))))),
+    A the layer's adapter ``adapter_num`` (-1: none), DP DropPath with the
+    keep masks ``keep_masks`` (``drop_path_masks``; None: no DropPath).
     With ``q_len`` the block's output covers only the first q_len tokens.
-    DropPath acts in training with a generator when
-    ``cfg.vit_path_drop_active``."""
-    dp_prob = cfg.path_drop_prob if (train and cfg.vit_path_drop_active
-                                     and generator is not None) else 0.0
-    h = mhsa(p.attn, layer_norm(p.ln1, x), cfg.num_heads, mask=mask,
-             logits_fp32=cfg.attn_logits_fp32, q_len=q_len, mm_dtype=mm_dtype,
-             attention_fn=attention_fn)
+    Returns (x, the attention probabilities with ``return_attention``, else
+    None)."""
+    adapter = _layer_adapter(p, adapter_num)
+    out = mhsa(p.attn, layer_norm(p.ln1, x), cfg.num_heads, mask=mask,
+               logits_fp32=cfg.attn_logits_fp32, q_len=q_len, mm_dtype=mm_dtype,
+               attention_fn=attention_fn, return_attention=return_attention)
+    h, probs = out if return_attention else (out, None)
+    if adapter is not None:
+        h = adapter_block(adapter["attn"], h, mm_dtype)
     if cfg.use_layer_scale:
         h = h * p.ls1.to(h.dtype)
-    h = drop_path(h, dp_prob, generator)
+    if keep_masks is not None:
+        h = apply_keep_mask(h, keep_masks[0], cfg.path_drop_prob)
     x = (x if q_len is None else x[:, :q_len]) + h
 
     h = mlp_block(p.mlp, layer_norm(p.ln2, x), mm_dtype)
+    if adapter is not None:
+        h = adapter_block(adapter["mlp"], h, mm_dtype)
     if cfg.use_layer_scale:
         h = h * p.ls2.to(h.dtype)
-    return x + drop_path(h, dp_prob, generator)
+    if keep_masks is not None:
+        h = apply_keep_mask(h, keep_masks[1], cfg.path_drop_prob)
+    return x + h, probs
 
 
 # --------------------------------------------------------------------------
@@ -311,15 +373,17 @@ def scale_lookup(scale_table: torch.Tensor, scales: torch.Tensor, num_scales: in
 
 def embed_patches(p: ViT, cfg: ViTConfig, patches: torch.Tensor, pos: torch.Tensor,
                   scales: Optional[torch.Tensor] = None,
-                  compute_dtype=torch.float32) -> torch.Tensor:
-    """(B, N, P, P, 3) or (B, N, P*P*3) pixel patches -> (B, T + N, H)
-    tokens: CLS (plus pos slot 0), the register tokens, then the patches."""
+                  compute_dtype=torch.float32, pre_embedded: bool = False) -> torch.Tensor:
+    """(B, N, P, P, 3) or (B, N, P*P*3) pixel patches [or, with
+    ``pre_embedded``, (B, N, H) features that skip the patch embedding] ->
+    (B, T + N, H) tokens: CLS (plus pos slot 0), the register tokens, then
+    the patches. The flag is explicit: for B/16, P*P*3 == H == 768."""
     emb = p.embeddings
     b, n = patches.shape[0], patches.shape[1]
     stream, mm = resolve_dtypes(compute_dtype)
 
     x = patches.reshape(b, n, -1).to(mm or stream)
-    if cfg.use_patch_embedding:
+    if cfg.use_patch_embedding and not pre_embedded:
         x = dense(emb.patch, x, mm, out_dtype=stream)
     else:
         x = x.to(stream)
@@ -348,41 +412,177 @@ def embed_patches(p: ViT, cfg: ViTConfig, patches: torch.Tensor, pos: torch.Tens
 # full forward
 # --------------------------------------------------------------------------
 
+def _pad_tokens(x: torch.Tensor, mask: Optional[torch.Tensor], multiple: int):
+    """Zero-pad the token axis of (B, S, H) to a multiple of ``multiple``;
+    the padding is masked as keys."""
+    b, s = x.shape[0], x.shape[1]
+    pad = -(-s // multiple) * multiple - s
+    if pad == 0:
+        return x, mask
+    x = F.pad(x, (0, 0, 0, pad))
+    if mask is None:
+        mask = torch.ones(b, s, dtype=torch.bool, device=x.device)
+    return x, torch.cat([mask, mask.new_zeros(b, pad)], dim=1)
+
+
 def vit_forward(p: ViT, cfg: ViTConfig, patches: torch.Tensor, pos: torch.Tensor,
                 scales: Optional[torch.Tensor] = None, *, tokens_only: bool = True,
                 patch_mask: Optional[torch.Tensor] = None,
                 compute_dtype=torch.bfloat16, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                attention_fn: Optional[Callable] = None) -> torch.Tensor:
+                attention_fn: Optional[Callable] = None, adapter_num: int = -1,
+                pad_seq_to: Optional[int] = None, pre_embedded: bool = False,
+                return_attention: bool = False, return_layers: bool = False):
     """ViT forward over a sparse patch sequence.
 
-    patches: (B, N, P, P, 3); pos: (B, N, 2) uv centers in [0, 1);
-    scales: optional (B, N) ints; patch_mask: optional (B, N) bool, False =
-    padded patch, excluded as a key (CLS and register tokens are always
-    valid). Returns fp32 (B, num_tokens, H) when ``tokens_only`` (the last
-    layer then computes only those queries), else (B, T + N, H). ``train``,
-    ``generator`` and ``attention_fn``: see ``encoder_layer``."""
-    if train and cfg.remat:
-        raise NotImplementedError("ViTConfig.remat (recomputing encoder layers in the "
-                                  "backward) is not ported to vtamiq_tpu_torch yet; "
-                                  "see ROADMAP.md")
+    patches: (B, N, P, P, 3) (or pre-embedded (B, N, H)); pos: (B, N, 2) uv
+    centers in [0, 1); scales: optional (B, N) ints; patch_mask: optional
+    (B, N) bool, False = padded patch, excluded as a key (CLS and register
+    tokens are always valid). Returns fp32 (B, num_tokens, H) when
+    ``tokens_only`` (the last layer then computes only those queries), else
+    (B, S, H). ``train`` with a ``generator`` draws the encoder's DropPath
+    masks (``drop_path_masks``); ``attention_fn`` and ``adapter_num`` (-1:
+    no adapter): see ``encoder_layer``.
+    ``pad_seq_to``: pad the tokens to a multiple of it (masked).
+
+    ``return_attention`` / ``return_layers``: also return each layer's
+    attention probabilities (the quadratic form, in place of
+    ``attention_fn``) / output states, as (x, attentions, layers); either
+    turns off the last layer's query slice. In training with ``cfg.remat``
+    each layer's activations are recomputed in the backward."""
     b = patches.shape[0]
     t = cfg.num_tokens
     _, mm_dtype = resolve_dtypes(compute_dtype)
-    x = embed_patches(p, cfg, patches, pos, scales, compute_dtype)
+    x = embed_patches(p, cfg, patches, pos, scales, compute_dtype, pre_embedded)
 
     mask = None
     if patch_mask is not None:
         mask = torch.cat([torch.ones(b, t, dtype=torch.bool, device=x.device),
                           patch_mask.to(torch.bool)], dim=1)
+    if pad_seq_to is not None:
+        x, mask = _pad_tokens(x, mask, pad_seq_to)
 
     layers = p.encoder.layers
     n_layers = cfg.effective_num_layers
+    slice_last = tokens_only and not (return_attention or return_layers)
+    remat = cfg.remat and torch.is_grad_enabled()
+    attentions: List[torch.Tensor] = []
+    states: List[torch.Tensor] = []
     for i in range(n_layers):
-        q_len = t if (tokens_only and i == n_layers - 1) else None
-        x = encoder_layer(layers[f"layer_{i}"], x, cfg, mask=mask, q_len=q_len,
-                          mm_dtype=mm_dtype, train=train, generator=generator,
-                          attention_fn=attention_fn)
+        q_len = t if (slice_last and i == n_layers - 1) else None
+        layer = layers[f"layer_{i}"]
+        keep_masks = drop_path_masks(x, cfg, train, generator)
+
+        def run(x, layer=layer, q_len=q_len, keep_masks=keep_masks):
+            return encoder_layer(layer, x, cfg, mask, q_len, mm_dtype, keep_masks,
+                                 attention_fn, adapter_num, return_attention)
+
+        if remat:
+            # the keep masks are drawn above, outside the recomputed
+            # function, so no random state needs restoring for the recompute
+            x, probs = torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False,
+                                                         preserve_rng_state=False)
+        else:
+            x, probs = run(x)
+        if return_attention:
+            attentions.append(probs)
+        if return_layers:
+            states.append(x)
 
     x = layer_norm(p.encoder.final_ln, x).float()
-    return x[:, :t] if tokens_only else x
+    if tokens_only:
+        x = x[:, :t]
+        states = [st[:, :t] for st in states]
+    if return_attention or return_layers:
+        return x, attentions, states
+    return x
+
+
+# --------------------------------------------------------------------------
+# ImageNet ViT weights (the jax-format ViT-B_16.npz layout)
+# --------------------------------------------------------------------------
+
+def _triangle_weights(in_size: int, out_size: int) -> torch.Tensor:
+    """(in, out) fp32 weights of ``jax.image.resize(..., "bilinear")`` along
+    one axis: a triangle kernel at half-pixel centres, widened by in/out
+    when shrinking (antialiasing), normalized per output sample."""
+    scale = np.float32(out_size) / np.float32(in_size)
+    inv_scale = np.float32(1.0) / scale
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * inv_scale \
+        - np.float32(0.5)
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=np.float32)[:, None]) / kernel_scale
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x)).astype(np.float32)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.from_numpy(np.where(inside[None, :], w, 0).astype(np.float32))
+
+
+def resize_bilinear(grid: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """(h, w, C) -> (out_h, out_w, C) as ``jax.image.resize`` with method
+    "bilinear" (antialiased when shrinking), in fp32."""
+    wh = _triangle_weights(grid.shape[0], out_h)
+    ww = _triangle_weights(grid.shape[1], out_w)
+    return torch.einsum("ijc,ia,jb->abc", grid.float(), wh, ww)
+
+
+@torch.no_grad()
+def load_vit_npz(npz: Mapping, cfg: ViTConfig, params: ViT) -> ViT:
+    """Load jax-format ImageNet ViT weights (a ``ViT-B_16.npz`` mapping: an
+    ``np.load`` result or a dict) into the ViT module ``params``, in place.
+
+    The npz is already in the (in, out) layout; attention kernels reshape
+    from (H, heads, d) / (heads, d, H) to (H, H). A positional grid of
+    another size is resized as ``jax.image.resize`` bilinear resizes it.
+    Keys the file lacks, and layers it does not have, keep their values."""
+    h = cfg.hidden_size
+    emb = params.embeddings
+
+    def a(name):
+        return torch.from_numpy(np.array(npz[name], dtype=np.float32))
+
+    def put(target: torch.Tensor, value: torch.Tensor):
+        target.copy_(value.reshape(target.shape).to(target.dtype))
+
+    if cfg.use_patch_embedding and "embedding/kernel" in npz:
+        # HWIO (P, P, 3, H) -> (P*P*3, H): the (h, w, c) patch flatten
+        put(emb.patch.kernel, a("embedding/kernel").reshape(-1, h))
+        put(emb.patch.bias, a("embedding/bias"))
+    if cfg.use_cls_token and "cls" in npz:
+        put(emb.cls_token, a("cls"))
+    key = "Transformer/posembed_input/pos_embedding"
+    if cfg.use_pos_embedding and key in npz:
+        posemb = a(key)
+        posemb = posemb.reshape(posemb.shape[-2], posemb.shape[-1])  # (1 + G*G, H)
+        if posemb.shape[0] != cfg.pos_grid ** 2 + 1:
+            tok, grid_flat = posemb[:1], posemb[1:]
+            gs_old, gs_new = int(math.sqrt(grid_flat.shape[0])), cfg.pos_grid
+            grid = resize_bilinear(grid_flat.reshape(gs_old, gs_old, -1), gs_new, gs_new)
+            posemb = torch.cat([tok, grid.reshape(gs_new * gs_new, -1)], dim=0)
+        emb.pos_embeddings.copy_(posemb)
+
+    enc = params.encoder
+    if "Transformer/encoder_norm/scale" in npz:
+        put(enc.final_ln.scale, a("Transformer/encoder_norm/scale"))
+        put(enc.final_ln.bias, a("Transformer/encoder_norm/bias"))
+    for i in range(cfg.effective_num_layers):
+        root = f"Transformer/encoderblock_{i}"
+        if f"{root}/LayerNorm_0/scale" not in npz:
+            continue
+        layer = enc.layers[f"layer_{i}"]
+        attn = f"{root}/MultiHeadDotProductAttention_1"
+        for name in ("query", "key", "value", "out"):
+            dense_p = getattr(layer.attn, name)
+            put(dense_p.kernel, a(f"{attn}/{name}/kernel").reshape(h, h))
+            put(dense_p.bias, a(f"{attn}/{name}/bias"))
+        for ours, theirs in (("fc1", "Dense_0"), ("fc2", "Dense_1")):
+            dense_p = getattr(layer.mlp, ours)
+            put(dense_p.kernel, a(f"{root}/MlpBlock_3/{theirs}/kernel"))
+            put(dense_p.bias, a(f"{root}/MlpBlock_3/{theirs}/bias"))
+        for ours, theirs in (("ln1", "LayerNorm_0"), ("ln2", "LayerNorm_2")):
+            ln = getattr(layer, ours)
+            put(ln.scale, a(f"{root}/{theirs}/scale"))
+            put(ln.bias, a(f"{root}/{theirs}/bias"))
+    return params

@@ -215,17 +215,22 @@ def vtamiq_forward(p: VTAMIQ, cfg: VTAMIQConfig, patches: torch.Tensor,
                    patch_mask: Optional[torch.Tensor] = None,
                    compute_dtype=torch.bfloat16, train: bool = False,
                    generator: Optional[torch.Generator] = None,
-                   attention_fn: Optional[Callable] = None) -> torch.Tensor:
+                   attention_fn: Optional[Callable] = None,
+                   adapter_num: Optional[int] = None) -> torch.Tensor:
     """Quality scores for batched (ref, dist) patch pairs.
 
     patches: (B, 2, N, P, P, 3), axis 1 = (reference, distorted); pos:
     (B, 2, N, 2) uv centers; scales: optional (B, 2, N) ints; patch_mask:
     optional (B, 2, N) bool. ``train`` with a ``generator`` (on the compute
     device) turns on DropPath and dropout; ``attention_fn``: see
-    ``models/vit.py::mhsa``. Returns q: (B,) fp32."""
+    ``models/vit.py::mhsa``. ``adapter_num``: the Houlsby adapter the
+    encoder runs; None selects adapter 0 when the ViT has adapters, -1 runs
+    none. Returns q: (B,) fp32."""
     b, k, n = patches.shape[0], patches.shape[1], patches.shape[2]
     if k != 2:
         raise ValueError(f"vtamiq_forward expects 2 towers (ref, dist); got {k}.")
+    if adapter_num is None:
+        adapter_num = 0 if cfg.vit.num_adapters > 0 else -1
 
     feats = vit_forward(
         p.vit, cfg.vit, patches.reshape((b * k,) + patches.shape[2:]),
@@ -234,7 +239,7 @@ def vtamiq_forward(p: VTAMIQ, cfg: VTAMIQConfig, patches: torch.Tensor,
         tokens_only=True,
         patch_mask=None if patch_mask is None else patch_mask.reshape(b * k, n),
         compute_dtype=compute_dtype, train=train, generator=generator,
-        attention_fn=attention_fn)  # (2B, T, H) fp32
+        attention_fn=attention_fn, adapter_num=adapter_num)  # (2B, T, H) fp32
 
     feats = feats.reshape(b, k, cfg.vit.num_tokens, cfg.vit.hidden_size)
     cls_diff = feats[:, 0, cfg.token_num] - feats[:, 1, cfg.token_num]  # fp32
@@ -245,3 +250,12 @@ def vtamiq_forward(p: VTAMIQ, cfg: VTAMIQConfig, patches: torch.Tensor,
                                    generator)
     return q_predictor(p.q_predictor, cls_diff, cfg.predictor_dropout, train,
                        generator).reshape(b)
+
+
+def vtamiq_forward_single_tower(p: VTAMIQ, cfg: VTAMIQConfig, patches: torch.Tensor,
+                                pos: torch.Tensor, scales: Optional[torch.Tensor] = None,
+                                **kwargs) -> torch.Tensor:
+    """The score of one (ref, dist) pair from unbatched (2, N, ...) inputs,
+    as a 0-d tensor; ``kwargs`` go to ``vtamiq_forward``."""
+    return vtamiq_forward(p, cfg, patches[None], pos[None],
+                          None if scales is None else scales[None], **kwargs)[0]

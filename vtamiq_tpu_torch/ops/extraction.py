@@ -32,7 +32,8 @@ def gather_patches(imgs: torch.Tensor, topleft: torch.Tensor, patch_dim: int,
                    tile_norm: Optional[tuple] = None) -> torch.Tensor:
     """Gather square pixel blocks.
 
-    imgs: (M, H, W, C) fp32; topleft: (M, 2, N) float or int top-left
+    imgs: (M, H, W, C), gathered as fp32 (a bf16 image converts exactly);
+    topleft: (M, 2, N) float or int top-left
     corners, floored and clipped to [0, H-P] x [0, W-P] -> (M, N, P, P, C).
     ``tile_norm``: optional (mean(C,) or None, std(C,) or None, out_dtype):
     each gathered tile becomes (x - mean) * (1/std) in fp32, then out_dtype,
@@ -47,7 +48,7 @@ def gather_patches(imgs: torch.Tensor, topleft: torch.Tensor, patch_dim: int,
         mean = tuple(float(x) for x in mean)
         inv_std = tuple(1.0 / float(s) for s in std)
     return gather_kernel.gather_patches(
-        imgs.contiguous(), ti.contiguous(), tj.contiguous(), patch_dim,
+        imgs.float().contiguous(), ti.contiguous(), tj.contiguous(), patch_dim,
         mean, inv_std, out_dtype or imgs.dtype)
 
 
@@ -81,14 +82,15 @@ def get_iqa_patches(
     tile_norm: Optional[tuple] = None,
     topleft: Optional[List[torch.Tensor]] = None,
     scale_order: Optional[torch.Tensor] = None,
+    tensors: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Sample and extract multiscale patches for a batch of image sets.
 
     Args:
       imgs: (B, K, H, W, 3) fp32 pixels on the compute device: the raw
-        images with ``tile_norm``, else the model inputs. A sampler that
-        weighs by a diff map reads it from the raw [0, 1] images, so it
-        needs ``tile_norm``.
+        images with ``tile_norm`` or ``tensors``, else the model inputs. A
+        sampler that weighs by a diff map reads it from the raw [0, 1]
+        images, so it needs one of the two.
       generator: CPU generator for the draws (corners and scale order).
       patch_count / patch_dim / patch_num_scales / scale_num_samples_ratio /
         use_aligned_patches / randomize_patch_scale_order: as in the JAX
@@ -99,6 +101,11 @@ def get_iqa_patches(
       topleft / scale_order: injected draws in place of the generator's, for
         tests: per sampled scale a (B, K, 2, N_s) tensor of float corners,
         and a (B, N) permutation of the final patch sequence.
+      tensors: optional (B, K, H, W, 3) fp32 or bf16 model inputs that the
+        gather reads in place of ``imgs``, pooled down the pyramid in their
+        own type (the PU-encoded images of the ``use_pu`` mode, which no
+        affine ``tile_norm`` can express); the diff map still reads
+        ``imgs``.
 
     Returns patches (B, K, N, P, P, 3), pos (B, K, N, 2) fp32 uv centers in
     [0, 1), scales (B, K, N) int32 or None for a single scale; all on
@@ -116,13 +123,13 @@ def get_iqa_patches(
     half = patch_dim // 2
     diff = None
     if patch_sampler.uses_diff and topleft is None:
-        if tile_norm is None:
+        if tile_norm is None and tensors is None:
             raise ValueError("get_iqa_patches(): a diff-weighted sampler reads the raw [0, 1] "
-                             "images; pass the raw images with tile_norm")
+                             "images; pass the raw images with tile_norm or tensors")
         diff = patch_sampler.compute_diff(imgs)                      # (B, H, W)
 
     patches_per_scale, pos_per_scale, scales_per_scale = [], [], []
-    cur, cur_diff = imgs, diff
+    cur, cur_diff = (imgs if tensors is None else tensors), diff
     cur_hw = None if img_hw is None else torch.as_tensor(img_hw, dtype=torch.int32).cpu()
     num_samples_total = 0
     sampled = 0

@@ -116,7 +116,7 @@ global_config = OrderedDict(
     # (new capability — the reference only reloads model weights and restarts
     # the schedule; requires the checkpoint to have been saved with
     # save_optimizer=True)
-    vit_weights_path=None,  # ViT-B_16-layout .npz (ImageNet pretrain); not ported, raises
+    vit_weights_path=None,  # ViT-B_16-layout .npz (ImageNet pretrain)
 
     seed=-1,
 

@@ -22,10 +22,10 @@ What differs from the JAX engine:
   them half-updated: ``recover_from_latest`` rebuilds both from
   ``latest.npz`` and the batch is redone. A CUDA error that poisons the
   context (illegal address, launch failure) is raised, never recovered.
-
-``use_pref_module``, ``use_pu`` and ``vit_weights_path`` raise, as their
-modules are not ported (ROADMAP.md Queue 1 items 5 and 6); so does a
-pairwise dataset in the steps.
+- **Preference module.** With ``use_pref_module`` the module hangs off the
+  model as ``pref_module`` (the JAX package keeps it in the same parameter
+  tree), so one optimizer trains and decays ``pref_module.p`` with the
+  model; checkpoints store it apart, under ``pref_module_state_dict``.
 
 After a run, ``last_run_stats`` holds per-epoch host timings of each phase
 (batches, pairs, seconds, seconds waiting on the loader, decode seconds).
@@ -42,10 +42,13 @@ import torch
 
 from ..inference import resolve_device
 from ..models.checkpoint import (
-    MODEL_STATE_DICT, OPT_LEAVES, apply_pretraining_gates, load_checkpoint,
-    merge_params, params_from_jax, restore_opt_state, save_checkpoint,
+    MODEL_STATE_DICT, OPT_LEAVES, PREF_MODULE_STATE_DICT, apply_pretraining_gates,
+    load_checkpoint, merge_params, params_from_jax, params_to_jax, restore_opt_state,
+    save_checkpoint,
 )
 from ..models.configs import VTAMIQConfig
+from ..models.preference import attach_preference_module
+from ..models.vit import load_vit_npz
 from ..models.vtamiq import VTAMIQ, init_vtamiq_params
 from ..ops.correlations import (
     KROCC_FIELD, PLCC_FIELD, PLCC_NOFIT_FIELD, RMSE_FIELD, RMSE_NOFIT_FIELD, SROCC_FIELD,
@@ -81,14 +84,22 @@ def get_model_params(cfg: VTAMIQConfig, checkpoint_file: Optional[str] = None,
                      use_pref_module: bool = False,
                      preloaded_ckpt: Optional[Dict] = None, device="cpu") -> VTAMIQ:
     """A VTAMIQ model on ``device``: weights drawn from a CPU generator
-    seeded with ``seed``, then a framework checkpoint merged in through the
-    pretraining gates (unless ``force_load_pretrained``). ``preloaded_ckpt``
+    seeded with ``seed``, ImageNet ViT weights from ``cfg.vit.vit_weights_path``
+    (under ``allow_pretrained_vit``), the preference module (initial weight
+    ``pref_module_config``) with ``use_pref_module``, then a framework
+    checkpoint merged in through the pretraining gates (unless
+    ``force_load_pretrained``), its preference module too. ``preloaded_ckpt``
     skips the file read when the caller holds ``load_checkpoint``'s result."""
-    if cfg.vit.vit_weights_path and C.pretraining_config["allow_pretrained_vit"]:
-        _not_ported("Loading ImageNet ViT weights (vit_weights_path)", 6)
-    if use_pref_module:
-        _not_ported("The preference module (use_pref_module)", 5)
     params = init_vtamiq_params(cfg, torch.Generator().manual_seed(seed))
+    vit_npz = cfg.vit.vit_weights_path
+    if C.pretraining_config["allow_pretrained_vit"] and vit_npz and os.path.isfile(vit_npz):
+        log(f"ViT: loading pretrained transformer weights from {vit_npz}")
+        with np.load(vit_npz) as npz:
+            load_vit_npz(npz, cfg.vit, params.vit)
+    elif vit_npz:
+        log_warn(f"ViT weights path [{vit_npz}] not found; using random init.")
+    if use_pref_module:
+        attach_preference_module(params, **C.pref_module_config)
     if checkpoint_file is not None or preloaded_ckpt is not None:
         ckpt = preloaded_ckpt
         if ckpt is None:
@@ -102,9 +113,16 @@ def get_model_params(cfg: VTAMIQConfig, checkpoint_file: Optional[str] = None,
                 allow_diffnet=C.pretraining_config["allow_pretrained_weights_diffnet"],
                 log=log)
         merge_params(params, params_from_jax(state), strict=False, log=log)
+        _merge_pref_module(params, ckpt)
     else:
         log_warn("Model used without framework checkpoint weights.")
     return params.to(device)
+
+
+def _merge_pref_module(params: VTAMIQ, ckpt: Dict):
+    if hasattr(params, "pref_module") and PREF_MODULE_STATE_DICT in ckpt:
+        merge_params(params.pref_module, params_from_jax(ckpt[PREF_MODULE_STATE_DICT]),
+                     log=log)
 
 
 def _named(params: VTAMIQ) -> Dict[str, torch.Tensor]:
@@ -113,7 +131,12 @@ def _named(params: VTAMIQ) -> Dict[str, torch.Tensor]:
 
 def _save(output_dir: str, filename: str, params: VTAMIQ, epoch: int, srocc: float,
           opt_state=None, extra_meta: Optional[Dict] = None):
-    save_checkpoint(output_dir, filename, {MODEL_STATE_DICT: params}, epoch, srocc,
+    """A checkpoint of the model, with the preference module apart."""
+    models = {MODEL_STATE_DICT: {k: v for k, v in params_to_jax(params).items()
+                                 if not k.startswith("pref_module|")}}
+    if hasattr(params, "pref_module"):
+        models[PREF_MODULE_STATE_DICT] = params_to_jax(params.pref_module)
+    save_checkpoint(output_dir, filename, models, epoch, srocc,
                     opt_state=opt_state if C.global_config["save_optimizer"] else None,
                     extra_meta=extra_meta)
 
@@ -319,8 +342,6 @@ def train():
     assert not (not do_train_ and do_val_), "Validation requires training."
     if g["mesh_data"] * g["mesh_model"] * int(g.get("mesh_seq", 1)) > 1:
         _not_ported("A device mesh (mesh_data * mesh_model * mesh_seq > 1)", 9)
-    if g["use_pu"]:
-        _not_ported("PU-encoded input (use_pu)", 6)
     device = resolve_device(g["device"])
 
     cfg = C.build_model_config()
@@ -417,7 +438,8 @@ def train():
             norm_std=tuple(norm_std) if norm_std is not None else None,
             # an fp32 run must not round its model inputs to bf16 in the
             # fused gather; "mixed" gathers bf16 for its bf16 patch matmul
-            gather_dtype="float32" if compute_dtype == torch.float32 else "bfloat16")
+            gather_dtype="float32" if compute_dtype == torch.float32 else "bfloat16",
+            pu_display_encode=bool(g["use_pu"]))
 
     steps_per_epoch = len(loader_train) if loader_train is not None else 1
     optimizer, lr_schedule = make_optimizer(g, steps_per_epoch)
@@ -432,6 +454,7 @@ def train():
         log(f"Resuming from checkpoint '{resume_file}'")
         ckpt = load_checkpoint(resume_file)
         merge_params(params, params_from_jax(ckpt.get(MODEL_STATE_DICT, {})), log=log)
+        _merge_pref_module(params, ckpt)
         if OPT_LEAVES in ckpt:
             restore_opt_state(opt_state, ckpt[OPT_LEAVES])
             log("Optimizer state restored.")
@@ -446,16 +469,18 @@ def train():
     if do_train_:
         train_step = make_train_step(
             cfg, sampler, make_ecfg(C.SPLIT_NAME_TRAIN), optimizer,
-            is_pairwise=is_pairwise, weighted_loss=g["use_weighted_loss"],
-            compute_dtype=compute_dtype)
+            is_pairwise=is_pairwise, use_pref_module=use_pref_module,
+            weighted_loss=g["use_weighted_loss"], compute_dtype=compute_dtype)
     if do_val_:
         eval_step_val = make_eval_step(
             cfg, sampler, make_ecfg(C.SPLIT_NAME_VAL), is_pairwise=is_pairwise,
-            weighted_loss=g["use_weighted_loss"], compute_dtype=compute_dtype)
+            use_pref_module=use_pref_module, weighted_loss=g["use_weighted_loss"],
+            compute_dtype=compute_dtype)
     if do_test_:
         eval_step_test = make_eval_step(
             cfg, sampler, make_ecfg(C.SPLIT_NAME_TEST), is_pairwise=is_pairwise,
-            weighted_loss=g["use_weighted_loss"], compute_dtype=compute_dtype)
+            use_pref_module=use_pref_module, weighted_loss=g["use_weighted_loss"],
+            compute_dtype=compute_dtype)
 
     # freeze state
     frozen_model = False
@@ -488,7 +513,8 @@ def train():
             return None
         ckpt = load_checkpoint(path)
         p = get_model_params(cfg, path, force_load_pretrained=True, seed=seed,
-                             preloaded_ckpt=ckpt, device=device)
+                             use_pref_module=use_pref_module, preloaded_ckpt=ckpt,
+                             device=device)
         o = optimizer.init(_named(p))
         if OPT_LEAVES in ckpt:
             restore_opt_state(o, ckpt[OPT_LEAVES])
@@ -625,12 +651,20 @@ def train():
     if do_test_:
         log("Doing Test.")
         if do_train_ and not is_debug:
+            # the model alone is reloaded for the test: the preference
+            # module keeps its final epoch's in-memory state, as in the
+            # reference and the JAX engine
+            pref_keep = (params.pref_module.p.detach().clone()
+                         if hasattr(params, "pref_module") else None)
             saved = "{}/{}.{}".format(
                 output_dir,
                 "latest" if (g["test_use_latest"] and g["train_save_latest"]) else "best",
                 CHECKPOINT_EXT)
             params = get_model_params(cfg, saved, force_load_pretrained=True, seed=seed,
-                                      device=device)
+                                      use_pref_module=use_pref_module, device=device)
+            if pref_keep is not None:
+                with torch.no_grad():
+                    params.pref_module.p.copy_(pref_keep)
 
         _, correlations = do_validation(
             eval_step_test, params, loader_test, sample_gen, (w_mae, w_rank, w_pears),

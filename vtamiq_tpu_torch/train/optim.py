@@ -150,10 +150,12 @@ def build_freeze_mask(params, freeze_state: bool,
                       freeze_dict: Optional[Mapping] = None) -> Dict[str, float]:
     """{parameter name: 1.0 trainable | 0.0 frozen} for a VTAMIQ module (or
     its ``named_parameters`` dict), with the JAX package's flags and defaults:
-    freeze_dict_vit{freeze_encoder (True), freeze_encoder_layerscale
-    (False), freeze_embeddings_patch, _cls_token, _extra_tokens, _pos (True),
-    freeze_embeddings_scale (False)}, freeze_quality_decoder,
-    freeze_q_predictor, freeze_w_predictor (False)."""
+    freeze_dict_vit{freeze_encoder (True), freeze_encoder_adapters (False),
+    freeze_encoder_layerscale (False), freeze_embeddings_patch, _cls_token,
+    _extra_tokens, _pos (True), freeze_embeddings_scale (False)},
+    freeze_quality_decoder, freeze_q_predictor, freeze_w_predictor (False).
+    A frozen encoder keeps its LayerScales and Houlsby adapters trainable
+    unless their own flags freeze them."""
     names = [n for n, _ in params.named_parameters()] if isinstance(params, nn.Module) \
         else list(params)
     mask = {n: 1.0 for n in names}
@@ -177,10 +179,14 @@ def build_freeze_mask(params, freeze_state: bool,
         if fd.get(flag, False):
             frozen_prefixes.append(prefix)
     keep_layerscale = not fd_vit.get("freeze_encoder_layerscale", False)
+    keep_adapters = not fd_vit.get("freeze_encoder_adapters", False)
     for n in names:
         if any(n.startswith(p) for p in frozen_prefixes):
-            layerscale = n.startswith("vit.encoder.layers.") and n.rsplit(".", 1)[-1] in ("ls1", "ls2")
-            mask[n] = 1.0 if (layerscale and keep_layerscale) else 0.0
+            in_layer = n.startswith("vit.encoder.layers.")
+            layerscale = in_layer and n.rsplit(".", 1)[-1] in ("ls1", "ls2")
+            adapter = in_layer and n.split(".")[4] == "adapters"
+            mask[n] = 1.0 if ((layerscale and keep_layerscale)
+                              or (adapter and keep_adapters)) else 0.0
     return mask
 
 
