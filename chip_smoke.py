@@ -41,6 +41,26 @@ Phases, each printing one JSON line:
                  torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
                  and, reported beside it, with the flag off; pairs/s at
                  batch 8.
+5b. scorer_int8 — VTAMIQScorer(quantize_int8=True) at the scorer's width:
+                 the encoder is quantized at the first score (37 int8
+                 leaves, the JAX package's count: the patch embed and q, k,
+                 v, out, fc1, fc2 of 6 layers); one batch of 8 pairs runs
+                 one gather and 37 int8 products (torch._int_mm, counted).
+                 Gates: _int_mm equal (torch.equal) to the plain product
+                 for every encoder shape at 500 patches, the last layer's
+                 pushdown rows at batch 1 and 5 rows (padded to 17); every
+                 dense_q8 call of an fp32 forward on the card recomputed by
+                 the CPU from the card's inputs (at most 8 rows with a
+                 quant flip, the rest to 1e-6 relative); fp32 int8 tokens
+                 card vs CPU (cosine > 0.995) and q (within twice the CPU's
+                 own int8 distance from its fp32 q); int8 against bf16
+                 tokens on the card (cosine > 0.995). Reported: int8 and
+                 bf16 pairs/s in 8 rounds of turns (each the median of 3
+                 timed batches, utils/benchharness.timed_stats), device
+                 kernels and copies per batch and per dense call
+                 (torch.profiler), the encoder's weight bytes, the peak
+                 memory of one batch, and fc1's int8 product against the
+                 bf16 matmul of the same shape with their bounds.
 6. weighted_caps — BASELINE configs 2 and 3 at full width: weighted CAPS
                  (diff weight 1, uniform weight 0.1, PERTURBED cells) with
                  the SSIM diff map (config 2 scoring) and the MAGNITUDE one
@@ -178,9 +198,10 @@ from vtamiq_tpu_torch.data import datasets, native_io, synth  # noqa: E402
 from vtamiq_tpu_torch.inference import VTAMIQScorer  # noqa: E402
 from vtamiq_tpu_torch.models.configs import VTAMIQConfig, get_vit_config  # noqa: E402
 from vtamiq_tpu_torch.models.preference import attach_preference_module  # noqa: E402
+from vtamiq_tpu_torch.models.vit import QuantDense, dense  # noqa: E402
 from vtamiq_tpu_torch.models.vtamiq import init_vtamiq_params, vtamiq_forward  # noqa: E402
 from vtamiq_tpu_torch.ops import flash_kernel, gather_kernel  # noqa: E402
-from vtamiq_tpu_torch.ops import sampling  # noqa: E402
+from vtamiq_tpu_torch.ops import quant, sampling  # noqa: E402
 from vtamiq_tpu_torch.ops.attention import (FLASH_ATTENTION_THRESHOLD,  # noqa: E402
                                             make_attention_fn)
 from vtamiq_tpu_torch.ops.correlations import compute_correlations  # noqa: E402
@@ -193,6 +214,7 @@ from vtamiq_tpu_torch.train import config as engine_config, engine  # noqa: E402
 from vtamiq_tpu_torch.train.optim import Optimizer, build_freeze_mask  # noqa: E402
 from vtamiq_tpu_torch.train.steps import (ExtractConfig, make_extract_fn,  # noqa: E402
                                           make_train_step, make_train_step_on_patches)
+from vtamiq_tpu_torch.utils import benchharness  # noqa: E402
 from vtamiq_tpu_torch.utils.color_spaces import pu_display_encode_torch  # noqa: E402
 
 SEED = 0
@@ -549,6 +571,283 @@ def bf16_tokens_vs_fp32(refs, dists):
     return {"rel_err": float((f16 - f32).norm() / f32.norm()),
             "cls_ref_minus_dist_fp32": (cls32[0::2] - cls32[1::2]).norm(dim=-1).tolist(),
             "cls_bf16_rounding": (cls16 - cls32).norm(dim=-1).tolist()}
+
+
+# ---------------------------------------------------------------------------
+# 5b. the int8 W8A8 scorer
+# ---------------------------------------------------------------------------
+
+INT8_TOPS = 1979e12            # H100 SXM int8 tensor cores, dense
+# patch embed + (q, k, v, out, fc1, fc2) in each of 6 layers: the count the
+# JAX package's quantize_params_int8 gives for the scorer's encoder
+INT8_LEAVES = 1 + 6 * 6
+# int8 card vs CPU, fp32 compute, the same patches. Two devices sum in other
+# orders, so an activation now and then lands on the other side of a
+# rounding midpoint of its row's quant and moves by one step (1/127 of the
+# row's amax); each such flip moves the next layer's inputs by far more than
+# fp32 rounding does, and the flips multiply through the layers (an H100
+# run: 3 flips in layer 0's q, 14.1M of 75.2M activations by the last layer,
+# tokens 1.5% apart, as far as int8 is from fp32 on the CPU: 2.3%). So:
+# - every dense_q8 call of the card's forward is recomputed by the CPU's
+#   dense_q8 from the card's own input: the quant may flip only where the
+#   two devices round one product differently (at most DENSE_Q8_FLIP_ROWS
+#   rows with a flip over all calls), every other row equal to
+#   DENSE_Q8_REL_TOL of the call's largest output;
+# - the card's int8 tokens against the CPU's: cosine > INT8_TOKEN_COS;
+# - the card's int8 q within INT8_Q_BAND times the CPU's own int8 distance
+#   from the fp32 q (plus FP32_Q_TOL): random weights make q a small
+#   difference of two CLS vectors, which amplifies any token noise
+DENSE_Q8_FLIP_ROWS = 8
+DENSE_Q8_REL_TOL = 1e-6
+INT8_Q_BAND = 2.0
+INT8_TOKEN_COS = 0.995          # also int8 vs bf16 tokens (tests/test_quant.py's gate)
+INT8_ROUNDS = 8                 # timed rounds per path, in turns
+
+
+def int_mm_shapes(cfg, pairs):
+    """(name, M, K, N) of every int8 product of the scorer's encoder."""
+    h, m, s = cfg.hidden_size, cfg.mlp_dim, cfg.num_tokens + N
+    rows, q1 = 2 * pairs * s, 2 * cfg.num_tokens  # the pushdown at batch 1
+    return [("qkv_out", rows, h, h), ("fc1", rows, h, m), ("fc2", rows, m, h),
+            ("patch_embed", 2 * pairs * N, P * P * C, h),
+            ("pushdown_q_b1", q1, h, h), ("pushdown_fc1_b1", q1, h, m),
+            ("pushdown_fc2_b1", q1, m, h), ("rows_under_17", 5, h, m)]
+
+
+def int8_operands(gen, m, k, n):
+    a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8).cuda()
+    b = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8).cuda().t()
+    return a, b   # b (K, N) column-major, as QuantDense stores kernel_q8
+
+
+def int_mm_gates(cfg, gen):
+    out = {}
+    for name, m, k, n in int_mm_shapes(cfg, PAIRS):
+        a, b = int8_operands(gen, m, k, n)
+        got = quant.int8_matmul(a, b)
+        want = quant.int8_matmul_plain(a, b)
+        if not torch.equal(got, want):
+            raise AssertionError(f"_int_mm {name} ({m}, {k}, {n}) differs from the plain "
+                                 f"product: max |d| {(got - want).abs().max().item()}")
+        out[name] = [m, k, n]
+    return out
+
+
+def dense_q8_calls_card_vs_cpu(scorer, patches, pos):
+    """Every dense_q8 call of one fp32 int8 forward on the card (every
+    encoder shape: q, k, v, out, fc1, fc2, the patch embed, the last layer's
+    pushdown), recomputed by the CPU's dense_q8 from the card's input."""
+    calls, orig = [], quant.dense_q8
+
+    def recording(p, x, dtype=None):
+        y = orig(p, x, dtype)
+        calls.append((p, x, y.cpu()))
+        return y
+    quant.dense_q8 = recording
+    try:
+        with torch.inference_mode():
+            vtamiq_forward(scorer.params, scorer.cfg, patches, pos, compute_dtype=torch.float32)
+    finally:
+        quant.dense_q8 = orig
+    flip_rows, worst, exact = 0, 0.0, 0
+    with torch.inference_mode():
+        for p, x, y_card in calls:
+            x_cpu = x.cpu()
+            y_cpu = quant.dense_q8(copy.deepcopy(p).cpu(), x_cpu)
+            flips = (quant.quantize_rows(x)[0].cpu() != quant.quantize_rows(x_cpu)[0]).any(-1)
+            flip_rows += int(flips.sum())
+            keep = ~flips
+            err = float((y_card[keep] - y_cpu[keep]).abs().max()) / float(y_cpu.abs().max())
+            worst = max(worst, err)
+            exact += bool(torch.equal(y_card, y_cpu))
+    if flip_rows > DENSE_Q8_FLIP_ROWS or not worst <= DENSE_Q8_REL_TOL:
+        raise AssertionError(f"dense_q8 card vs CPU on the card's inputs: {flip_rows} rows "
+                             f"with a flip (allowed {DENSE_Q8_FLIP_ROWS}), relative error "
+                             f"{worst} on the rest (allowed {DENSE_Q8_REL_TOL})")
+    return {"calls": len(calls), "calls_bit_equal": exact, "flip_rows": flip_rows,
+            "max_rel_err": worst}
+
+
+def int_mm_times(cfg, gen):
+    """fc1's int8 product (CUDA events, median of 30) with kernel_q8 as
+    stored (column-major) and row-major, beside the bf16 matmul of the same
+    shape, each with its bound."""
+    m, k, n = 2 * PAIRS * (cfg.num_tokens + N), cfg.hidden_size, cfg.mlp_dim
+    a, b = int8_operands(gen, m, k, n)
+    b_rows = b.contiguous()
+    if not torch.equal(torch._int_mm(a, b_rows), torch._int_mm(a, b)):
+        raise AssertionError("_int_mm gives other results for a row-major kernel")
+    a16 = torch.randn(m, k, generator=gen).to("cuda", torch.bfloat16)
+    b16 = torch.randn(k, n, generator=gen).to("cuda", torch.bfloat16)
+    ops = 2.0 * m * k * n
+    bytes8, bytes16 = m * k + k * n + 4 * m * n, 2 * (m * k + k * n + m * n)
+    bound8 = max(ops / INT8_TOPS, bytes8 / HBM_BYTES_PER_S) * 1e3
+    bound16 = max(ops / BF16_FLOPS_PER_S, bytes16 / HBM_BYTES_PER_S) * 1e3
+    return {"shape": [m, k, n],
+            "int_mm_ms": median_ms(lambda: torch._int_mm(a, b)),
+            "int_mm_row_major_kernel_ms": median_ms(lambda: torch._int_mm(a, b_rows)),
+            "bf16_matmul_ms": median_ms(lambda: a16 @ b16),
+            "int_mm_bound_ms": bound8,
+            "int_mm_bound_by": "operations" if ops / INT8_TOPS > bytes8 / HBM_BYTES_PER_S
+            else "bytes",
+            "bf16_bound_ms": bound16,
+            "bf16_bound_by": "operations" if ops / BF16_FLOPS_PER_S > bytes16 / HBM_BYTES_PER_S
+            else "bytes"}
+
+
+def dense_launches(holder, x):
+    """Device kernels of one dense call (int8: activation quant, product and
+    dequant), by torch.profiler."""
+    with torch.inference_mode():
+        return sampling_launches(lambda: dense(holder, x, torch.bfloat16))
+
+
+def encoder_weight_bytes(vit, qvit):
+    """Bytes of the encoder's weights as the int8 scorer stores them (int8
+    kernels, fp32 scales, the rest fp32) beside the same weights in fp32 and
+    in bf16; and the quantized kernels alone."""
+    total = sum(t.numel() for t in vit.state_dict().values())
+    kernels = sum(mod.kernel_q8.numel() for mod in qvit.modules()
+                  if isinstance(mod, QuantDense))
+    stored = sum(t.numel() * t.element_size() for t in qvit.state_dict().values())
+    scales = sum(mod.kernel_scale.numel() * 4 for mod in qvit.modules()
+                 if isinstance(mod, QuantDense))
+    return {"int8_stored": stored, "fp32": 4 * total, "bf16": 2 * total,
+            "quantized_kernels_int8_with_scales": kernels + scales,
+            "quantized_kernels_bf16": 2 * kernels, "quantized_kernels_fp32": 4 * kernels,
+            "quantized_share_of_weights": kernels / total}
+
+
+def scoring_flops_per_pair(cfg):
+    """Matmul operations of the encoder for one pair (two towers): the
+    plausibility bound of the rates (int8 and bf16 alike at the int8 peak)."""
+    s, h, m = cfg.num_tokens + N, cfg.hidden_size, cfg.mlp_dim
+    layer = 2 * s * (4 * h * h + 2 * h * m) + 4 * s * s * h
+    return 2 * (cfg.effective_num_layers * layer + 2 * N * P * P * C * h)
+
+
+def phase_scorer_int8(card, scorer16, refs, dists):
+    """The int8 W8A8 scorer (quantize_int8) beside the bf16 one; see the
+    module docstring."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED)
+    scorer8 = VTAMIQScorer(seed=SEED, device="cuda", quantize_int8=True)
+    cfg = scorer8.cfg.vit
+    if quant.count_quantized_leaves(scorer8.params) != 0:
+        raise AssertionError("quantize_int8 rewrote the encoder before the first score")
+    # the main path: counts reset just before, read just after
+    gather_kernel.launches = 0
+    quant.launches = 0
+    qs8 = scorer8.score_batch(refs, dists)
+    launches = {"gather": gather_kernel.launches, "int_mm": quant.launches}
+    leaves = quant.count_quantized_leaves(scorer8.params)
+    if leaves != INT8_LEAVES:
+        raise AssertionError(f"{leaves} quantized leaves, the JAX package's count is "
+                             f"{INT8_LEAVES}")
+    if not np.isfinite(qs8).all():
+        raise AssertionError(f"non-finite int8 scores: {qs8}")
+    if launches != {"gather": 1, "int_mm": INT8_LEAVES}:
+        raise AssertionError(f"int8 batch launches {launches}: expected one gather and "
+                             f"{INT8_LEAVES} int8 products")
+
+    int_mm = int_mm_gates(cfg, gen)
+
+    # card vs CPU in fp32 compute (TF32 off), the same patch draws
+    torch.backends.cuda.matmul.allow_tf32 = False
+    extract = make_extract_fn(scorer16.sampler, ExtractConfig(
+        patch_count=N, patch_dim=P, gather_dtype="float32"))
+    raw = torch.from_numpy(np.stack([np.stack([r, d]) for r, d in zip(refs[:2], dists[:2])]))
+    patches, pos, _ = extract(raw, torch.Generator().manual_seed(SEED))
+    card32 = VTAMIQScorer(seed=SEED, device="cuda", compute_dtype=torch.float32,
+                          quantize_int8=True)
+    cpu32 = VTAMIQScorer(seed=SEED, device="cpu", compute_dtype=torch.float32,
+                         quantize_int8=True)
+    for s in (card32, cpu32):
+        s._ensure_quantized()
+    calls = dense_q8_calls_card_vs_cpu(card32, patches.cuda(), pos.cuda())
+    q_cpu, q_card = (VTAMIQScorer(seed=SEED, device=d, compute_dtype=torch.float32,
+                                  quantize_int8=True).score_batch(refs[:2], dists[:2])
+                     for d in ("cpu", "cuda"))
+    q_cpu_fp32 = VTAMIQScorer(seed=SEED, device="cpu", compute_dtype=torch.float32
+                              ).score_batch(refs[:2], dists[:2])
+    int8_dev = float(np.max(np.abs(q_cpu - q_cpu_fp32)))
+    card_dev = float(np.max(np.abs(q_card - q_cpu_fp32)))
+    if not card_dev <= INT8_Q_BAND * int8_dev + FP32_Q_TOL:
+        raise AssertionError(f"int8 q on the card {card_dev} from the CPU's fp32 q, beyond "
+                             f"{INT8_Q_BAND} x the CPU's int8 distance {int8_dev}")
+    flat = patches.reshape((-1,) + patches.shape[2:])
+    flat_pos = pos.reshape(flat.shape[0], -1, 2)
+    with torch.inference_mode():
+        t_card = card32.params.vit(flat.cuda(), flat_pos.cuda(),
+                                   compute_dtype=torch.float32).cpu()
+        t_cpu = cpu32.params.vit(flat, flat_pos, compute_dtype=torch.float32)
+    cos_cpu = float((t_card * t_cpu).sum() / (t_card.norm() * t_cpu.norm()))
+    if not cos_cpu > INT8_TOKEN_COS:
+        raise AssertionError(f"int8 tokens card vs CPU: cosine {cos_cpu} <= {INT8_TOKEN_COS}")
+    del card32, cpu32
+
+    # int8 tokens against bf16 tokens on the card, the same fp32 patches
+    with torch.inference_mode():
+        f16 = scorer16.params.vit(flat.cuda(), flat_pos.cuda(),
+                                  compute_dtype=torch.bfloat16).float()
+        f8 = scorer8.params.vit(flat.cuda(), flat_pos.cuda(),
+                                compute_dtype=torch.bfloat16).float()
+    cos = float((f8 * f16).sum() / (f8.norm() * f16.norm()))
+    if not cos > INT8_TOKEN_COS:
+        raise AssertionError(f"int8 vs bf16 tokens: cosine {cos} <= {INT8_TOKEN_COS}")
+
+    # pairs/s in turns, bf16 first in odd rounds and int8 first in even ones
+    bound = INT8_TOPS / scoring_flops_per_pair(cfg)
+    for s in (scorer16, scorer8):
+        s.score_batch(refs, dists)
+    rates = {"bf16": [], "int8": []}
+    for r in range(INT8_ROUNDS):
+        order = (("bf16", scorer16), ("int8", scorer8))
+        for key, s in (order if r % 2 == 0 else order[::-1]):
+            rates[key].append(benchharness.timed_stats(
+                lambda t, s=s: s.score_batch(refs, dists), PAIRS, bound, trials=3)["median"])
+    rate_stats = {k: {"mean": float(np.mean(v)), "std": float(np.std(v)), "min": min(v),
+                      "max": max(v), "rounds": v} for k, v in rates.items()}
+
+    activity = {k: sampling_launches(lambda s=s: s.score_batch(refs, dists))
+                for k, s in (("bf16", scorer16), ("int8", scorer8))}
+    memory = {}  # both models are resident: the batch's own peak is the difference
+    for k, s in (("bf16", scorer16), ("int8", scorer8)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        s.score_batch(refs, dists)
+        memory[k] = {"max_memory_allocated": torch.cuda.max_memory_allocated(),
+                     "batch_peak_above_resident": torch.cuda.max_memory_allocated() - before}
+    fc1 = scorer8.params.vit.encoder.layers.layer_0.mlp.fc1
+    x = torch.randn(2 * PAIRS * (cfg.num_tokens + N), cfg.hidden_size,
+                    generator=gen).to("cuda", torch.bfloat16)
+    per_dense = {"int8": dense_launches(fc1, x),
+                 "bf16": dense_launches(scorer16.params.vit.encoder.layers.layer_0.mlp.fc1, x)}
+    emit({"phase": "scorer_int8", "config": f"ViT-B/16 {cfg.effective_num_layers} layers, "
+          f"{cfg.num_extra_tokens} registers, {N} patches of {P}x{P}, {H}x{W}, "
+          f"batch {PAIRS}, bf16 compute, encoder W8A8",
+          "q": [float(q) for q in qs8], "main_path_launches": launches,
+          "quantized_leaves": leaves, "expected_leaves": INT8_LEAVES,
+          "int_mm_equal_to_plain": int_mm, "dense_q8_calls_card_vs_cpu": calls,
+          "dense_q8_flip_rows_allowed": DENSE_Q8_FLIP_ROWS,
+          "dense_q8_rel_tol": DENSE_Q8_REL_TOL,
+          "q_int8_cpu_fp32": q_cpu.tolist(), "q_int8_card_fp32": q_card.tolist(),
+          "q_cpu_fp32_unquantized": q_cpu_fp32.tolist(),
+          "q_int8_card_from_fp32": card_dev, "q_int8_cpu_from_fp32": int8_dev,
+          "q_band": INT8_Q_BAND, "tokens_int8_card_vs_cpu_cosine": cos_cpu,
+          "tokens_int8_card_vs_cpu_rel_err": float((t_card - t_cpu).norm() / t_cpu.norm()),
+          "tokens_int8_vs_bf16_cosine": cos, "tokens_cosine_min": INT8_TOKEN_COS,
+          "pairs_per_s": rate_stats, "rounds": INT8_ROUNDS, "trials_per_round": 3,
+          "rate_bound_pairs_per_s": bound,
+          "device_activity_per_batch": activity, "kernels_per_dense_call": per_dense,
+          "dense_calls_per_forward": INT8_LEAVES,
+          "encoder_weight_bytes": encoder_weight_bytes(scorer16.params.vit,
+                                                       scorer8.params.vit),
+          "memory_bytes": memory,
+          "fc1_product": int_mm_times(cfg, gen),
+          "phase_s": time.perf_counter() - t0, "card": card})
+    return launches["gather"]
 
 
 # ---------------------------------------------------------------------------
@@ -1888,6 +2187,7 @@ def main():
     k = phase_kernel()
     attention = phase_attention(smi)
     scorer, refs, dists, launches = phase_scorer(smi)
+    int8_launches = phase_scorer_int8(smi, scorer, refs, dists)
     weighted_launches, bare_config3_pairs_per_s = phase_weighted_caps(smi, refs, dists)
     phase_server(scorer, refs, dists)
     del scorer
@@ -1938,6 +2238,8 @@ def main():
         "launches": launches, "launches_on": "one scorer batch of 8 pairs",
         "launches_engine_config3": engine3["gather_launches"],
         "launches_engine_config3_on": "engine_config3: every train, val and test step",
+        "launches_scorer_int8": int8_launches,
+        "launches_scorer_int8_on": "one int8 (quantize_int8) scorer batch of 8 pairs",
         "launches_weighted_caps": weighted_launches,
         "launches_weighted_caps_on": "one config 2 (weighted CAPS) scorer batch of 8 pairs",
         "launches_engine_pieapp": pieapp["gather_launches"],

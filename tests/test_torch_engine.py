@@ -9,7 +9,8 @@ JAX's extraction drew for the same batch: the test records them inside
 JAX's jitted steps and hands them to the port's steps in order, after
 checking that the port's batch holds the same images bit for bit. Per-step
 losses (every step logged) and the test correlations agree to 1e-4; fp32 on
-both sides, sums in other orders.
+both sides, sums in other orders. Each parity test runs alone in a fresh
+interpreter (``tests/test_torch_process_state.py``).
 """
 
 import dataclasses
@@ -23,6 +24,7 @@ import pytest
 import torch
 
 from test_datasets import make_tid
+from test_torch_process_state import rerun_in_fresh_process
 
 from vtamiq_tpu.data.datasets import TID2013Dataset as JTID2013Dataset
 from vtamiq_tpu.models.checkpoint import load_checkpoint as jload_checkpoint
@@ -175,7 +177,9 @@ def _apply_variant(mod, variant, root):
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
-def test_engine_matches_jax(configs, tid_root, tmp_path, monkeypatch, variant):
+def test_engine_matches_jax(request, configs, tid_root, tmp_path, monkeypatch, variant):
+    if rerun_in_fresh_process(request):  # see tests/test_torch_process_state.py
+        return
     if VARIANTS[variant].get("scales"):  # big enough for 3 pyramid levels
         from vtamiq_tpu_torch.data import synth
         tid_root = str(tmp_path / "big")
@@ -507,11 +511,13 @@ def pieapp_root(tmp_path):
 
 
 @pytest.mark.parametrize("use_pref_module", [True, False])
-def test_pairwise_engine_matches_jax(configs, pieapp_root, tmp_path, monkeypatch,
+def test_pairwise_engine_matches_jax(request, configs, pieapp_root, tmp_path, monkeypatch,
                                      use_pref_module):
     """engine.train() on PieAPP pairs against JAX's: train, val and test,
     two epochs, on JAX's recorded patches; per-step losses, correlations,
     the checkpoint's model, preference module and optimizer to 1e-4."""
+    if rerun_in_fresh_process(request):  # see tests/test_torch_process_state.py
+        return
     from vtamiq_tpu.data.datasets import PieAPPTrainPairwise as JPieAPP
     from vtamiq_tpu_torch.data.datasets import PieAPPTrainPairwise
     init = str(tmp_path / "init")

@@ -523,3 +523,58 @@ def test_remat_step_gradients_equal_on_card():
     for n, g in grads[0].items():
         assert (g is None) == (grads[1][n] is None), n
         assert g is None or torch.equal(g, grads[1][n]), n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(8144, 768, 768), (8144, 768, 3072), (8144, 3072, 768),
+                                   (8000, 768, 768), (18, 768, 3072), (5, 768, 768),
+                                   (1, 3072, 768)])
+def test_int_mm_matches_plain_product_on_card(m, k, n):
+    """The int8 product of the W8A8 serving path (torch._int_mm, s8 x s8 ->
+    s32) equal to the plain float64 product on the card, for the encoder's
+    shapes at 500 patches, the last layer's rows at batch 1 and row counts
+    under 17 (padded with zero rows); kernel_q8 column-major, as stored."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch._int_mm runs only on the card here")
+    from vtamiq_tpu_torch.ops import quant
+    gen = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8).cuda()
+    b = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8).cuda().t()
+    before = quant.launches
+    got = quant.int8_matmul(a, b)
+    assert quant.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, quant.int8_matmul_plain(a, b))
+
+
+@pytest.mark.gpu
+def test_int8_scorer_on_card_matches_cpu_dense_calls():
+    """A small int8 scorer on the card: the lazy rewrite, one gather and one
+    int8 product per dense leaf a batch, and each dense_q8 output equal to
+    the CPU's on the same input (1e-6 relative, no quant flip on the same
+    input)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import copy
+    import numpy as np
+    from vtamiq_tpu_torch.inference import VTAMIQScorer
+    from vtamiq_tpu_torch.models.configs import VTAMIQConfig, get_vit_config
+    from vtamiq_tpu_torch.ops import quant
+    cfg = VTAMIQConfig(vit=get_vit_config(num_keep_layers=2, num_extra_tokens=8,
+                                          hidden_size=64, mlp_dim=128, num_heads=4),
+                       num_rgs=1, num_rcabs=1, ca_reduction=4)
+    scorer = VTAMIQScorer(cfg=cfg, patch_count=64, seed=0, device="cuda",
+                          compute_dtype=torch.float32, quantize_int8=True)
+    rng = np.random.default_rng(0)
+    imgs = [rng.uniform(0, 1, (64, 96, 3)).astype(np.float32) for _ in range(4)]
+    gather_kernel.launches, quant.launches = 0, 0
+    q = scorer.score_batch(imgs[:2], imgs[2:])
+    assert np.isfinite(q).all()
+    assert quant.count_quantized_leaves(scorer.params) == 13
+    assert (gather_kernel.launches, quant.launches) == (1, 13)
+    gen = torch.Generator().manual_seed(1)
+    holder = scorer.params.vit.encoder.layers.layer_0.mlp.fc1
+    x = torch.randn(300, 64, generator=gen)
+    y_card = quant.dense_q8(holder, x.cuda()).cpu()
+    y_cpu = quant.dense_q8(copy.deepcopy(holder).cpu(), x)
+    assert (y_card - y_cpu).abs().max() <= 1e-6 * y_cpu.abs().max()

@@ -185,8 +185,13 @@ def test_default_device_is_the_card():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="quantize_int8"):
-        VTAMIQScorer(cfg=CFG, device="cpu", quantize_int8=True)
+    # quantize_int8 is ported (tests/test_torch_quant.py): it no longer
+    # raises, and quantizes the encoder at the first score
+    from vtamiq_tpu_torch.ops.quant import count_quantized_leaves
+    int8 = VTAMIQScorer(cfg=CFG, patch_count=N, device="cpu", quantize_int8=True)
+    assert count_quantized_leaves(int8.params) == 0
+    assert np.isfinite(int8.score_pair(*pair(0)))
+    assert count_quantized_leaves(int8.params.vit) == 13
     # ImageNet weights load (tests/test_torch_vit_npz.py); a missing file raises
     with pytest.raises(FileNotFoundError):
         VTAMIQScorer.from_vit_npz("missing.npz", cfg=CFG, device="cpu")

@@ -11,7 +11,8 @@ Layer map (module names follow the JAX package):
                 and the center prior), patch extraction, the patch-gather
                 and flash-attention CUDA kernels' wrappers, flash attention
                 and the attention policy, the training losses, the IQA
-                metrics (``correlations``, ``fitting``, ``values``).
+                metrics (``correlations``, ``fitting``, ``values``), the int8
+                W8A8 serving path (``quant``).
 - ``data``    — the dataset parsers, the batch loader, the host image
                 decoder's bindings, size buckets, and synthetic pairs and
                 datasets (``synth``).
@@ -20,7 +21,8 @@ Layer map (module names follow the JAX package):
                 run configs (``config``), the training engine
                 (``engine.train()``) and the run scripts (``run_custom``,
                 ``run_multi``).
-- ``utils``   — logging, the scalar writer, accumulators, timers, retries.
+- ``utils``   — logging, the scalar writer, accumulators, timers, retries,
+                profiling, the measurement harness, image tools.
 - ``inference`` / ``serving`` — ``VTAMIQScorer`` and the HTTP server.
 - ``csrc`` + ``_build`` — CUDA sources built with nvcc, and the host image
                 decoder built with g++, at first use.

@@ -6,7 +6,8 @@ group by the shape they are scored at; each group goes to the device as one
 kernel launch per scale cuts the patches (normalized, in the compute dtype)
 and one forward of the dual-tower model gives the scores. Long sequences
 whose quadratic attention would not fit take the flash attention kernels
-(``ops/attention.py::choose_attention_fn``, the JAX package's policy).
+(``ops/attention.py::choose_attention_fn``, the JAX package's policy). With
+``quantize_int8`` the encoder's dense layers run in int8 (``ops/quant.py``).
 
 Example:
     scorer = VTAMIQScorer.from_checkpoint("best.npz")   # device="cuda"
@@ -27,6 +28,7 @@ from .models.configs import VTAMIQConfig, get_vit_config
 from .models.vit import load_vit_npz
 from .models.vtamiq import VTAMIQ, init_vtamiq_params, vtamiq_forward
 from .ops.attention import choose_attention_fn
+from .ops.quant import quantize_params_int8, with_child
 from .ops.sampling import PatchSampler
 from .train.steps import ExtractConfig, make_extract_fn
 from .utils.logging import log_warn
@@ -82,11 +84,10 @@ class VTAMIQScorer:
         ``compute_dtype``: bf16 (default) or fp32, for the gathered patches
         and the ViT; the CLS difference and the head always run in fp32.
 
-        ``quantize_int8`` is not ported yet and raises."""
+        ``quantize_int8``: rewrite the ViT encoder's dense weights to int8
+        (W8A8 dynamic, ``ops/quant.py``) at the first score, so the weights
+        that the classmethods merged are the ones quantized. Serving only."""
         self.device = resolve_device(device)
-        if quantize_int8:
-            raise NotImplementedError("quantize_int8 (W8A8 serving path) is not ported "
-                                      "to vtamiq_tpu_torch yet; see ROADMAP.md")
         if cfg is None:
             cfg = VTAMIQConfig(vit=get_vit_config(num_keep_layers=6, num_extra_tokens=8))
         self.cfg = cfg
@@ -100,6 +101,7 @@ class VTAMIQScorer:
         self.size_buckets = ([(int(b[0]), int(b[1])) for b in size_buckets]
                              if size_buckets else None)
         self.ingest_uint8 = bool(ingest_uint8)
+        self._quantize_int8 = bool(quantize_int8)
         self.compute_dtype = compute_dtype
         self._generator = torch.Generator().manual_seed(seed)
         self._oversize_warned: set = set()
@@ -108,6 +110,14 @@ class VTAMIQScorer:
             patch_num_scales=patch_num_scales,
             norm_mean=(DEFAULT_NORM_MEAN,) * 3, norm_std=(DEFAULT_NORM_STD,) * 3,
             gather_dtype=str(compute_dtype).replace("torch.", "")))
+
+    def _ensure_quantized(self):
+        """Quantize the encoder once, lazily, at the first score; the module
+        the caller passed in is left as it is."""
+        if not self._quantize_int8:
+            return
+        self.params = with_child(self.params, "vit", quantize_params_int8(self.params.vit))
+        self._quantize_int8 = False
 
     # -- constructors --------------------------------------------------------
 
@@ -177,6 +187,7 @@ class VTAMIQScorer:
         ``num_repeats`` patch draws."""
         if len(refs) != len(dists):
             raise ValueError("refs and dists must have the same length.")
+        self._ensure_quantized()
         groups = {}
         for i, (r, d) in enumerate(zip(refs, dists)):
             if r.shape != d.shape:

@@ -154,20 +154,41 @@ def apply_pretraining_gates(model_state: Mapping[str, np.ndarray], allow_vit: bo
     return {k: v for k, v in model_state.items() if k.split(_SEP, 1)[0] not in drop}
 
 
-def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+def params_from_jax(flat: Dict[str, np.ndarray], model: Optional[nn.Module] = None):
     """JAX parameter pytree leaves (``|``-joined paths -> numpy arrays, as
     ``load_checkpoint`` returns them or as ``jax.tree_util`` flattens a
     params dict) -> a state dict of the port's modules. No transposes: the
-    port keeps the JAX layouts (see the module docstring)."""
-    return {k.replace(_SEP, "."): torch.from_numpy(np.array(v, copy=True))
-            for k, v in flat.items()}
+    port keeps the JAX layouts (see the module docstring). A tree that the
+    JAX package's ``quantize_params_int8`` rewrote keeps its int8
+    ``kernel_q8`` and fp32 ``kernel_scale`` leaves.
+
+    With ``model``: returns the module with the leaves loaded strictly, each
+    ``Dense`` holder whose leaves are int8 in ``flat`` replaced by a
+    ``QuantDense`` holder built from them (``ops/quant.py::map_dense``: the
+    module returned is a new one, sharing the rest with ``model``)."""
+    state = {k.replace(_SEP, "."): torch.from_numpy(np.array(v, copy=True))
+             for k, v in flat.items()}
+    if model is None:
+        return state
+    from ..models.vit import QuantDense
+    from ..ops.quant import map_dense
+
+    def holder(d: nn.Module, name: str) -> nn.Module:
+        if name + "kernel_q8" not in state:
+            return d
+        return QuantDense(state[name + "kernel_q8"], state[name + "kernel_scale"],
+                          state[name + "bias"])
+    model = map_dense(model, holder)
+    model.load_state_dict(state, strict=True)
+    return model
 
 
 def params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
     """The inverse of ``params_from_jax``: a module's parameters as the JAX
     package's ``|``-joined leaf paths -> numpy arrays (fp32 copies on the
-    host)."""
-    return {k.replace(".", _SEP): v.detach().to("cpu", torch.float32).numpy().copy()
+    host; int8 leaves of a quantized module stay int8)."""
+    return {k.replace(".", _SEP): v.detach().to(
+                "cpu", v.dtype if v.dtype == torch.int8 else torch.float32).numpy().copy()
             for k, v in model.state_dict().items()}
 
 

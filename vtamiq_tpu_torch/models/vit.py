@@ -59,6 +59,20 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.empty(fan_out))
 
 
+class QuantDense(nn.Module):
+    """An int8 dense holder (``ops/quant.py::quantize_params_int8``):
+    ``kernel_q8`` (in, out) int8, ``kernel_scale`` (out,) fp32 and ``bias``
+    (out,), all buffers. ``kernel_q8`` is stored column-major (its transpose
+    is contiguous), the layout cuBLASLt's int8 product takes without a copy."""
+
+    def __init__(self, kernel_q8: torch.Tensor, kernel_scale: torch.Tensor,
+                 bias: torch.Tensor):
+        super().__init__()
+        self.register_buffer("kernel_q8", kernel_q8.t().contiguous().t())
+        self.register_buffer("kernel_scale", kernel_scale)
+        self.register_buffer("bias", bias)
+
+
 class LayerNormParams(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
@@ -206,7 +220,11 @@ def dense(p: Dense, x: torch.Tensor, dtype=None, out_dtype=None) -> torch.Tensor
     """y = x @ kernel + bias. ``dtype``: matmul input dtype (default
     x.dtype); products accumulate in fp32. ``out_dtype`` (default ``dtype``):
     result dtype; the fp32 sum is rounded to it once, then the bias (cast to
-    it) is added, as in the JAX package."""
+    it) is added, as in the JAX package. A ``QuantDense`` holder takes the
+    int8 path (``ops/quant.py::dense_q8``) and returns ``out_dtype``."""
+    if isinstance(p, QuantDense):
+        from ..ops.quant import dense_q8
+        return dense_q8(p, x, out_dtype or dtype)
     dtype = dtype or x.dtype
     out_dtype = out_dtype or dtype
     if out_dtype == dtype:
