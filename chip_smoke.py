@@ -109,6 +109,35 @@ Phases, each printing one JSON line:
                  use_pu (q 1e-3, loss 1e-4); and one bf16 config 3 use_pu
                  step on the card whose gather (PU image, no
                  normalization, bf16 out) equals the plain version.
+9c. ring_attention — ring attention (vtamiq_tpu_torch/parallel/) in worlds
+                 of 2 and 4 ranks, each a child process of this script on the
+                 one card over gloo (NCCL cannot put two ranks on one
+                 device), at config 5's shapes: 16 rows, 12 heads, 5009
+                 valid tokens padded to 5120, head dim 64, in bf16 and in
+                 fp32 with TF32 off. Gates: each rank's output and dq, dk,
+                 dv chunks against ops/attention.py::flash_attention over
+                 the whole sequence on the same card (max error over max
+                 magnitude: fp32 1e-5 for the output and 1e-4 for the
+                 gradients, bf16 2e-2), n flash-forward and n
+                 fused-backward launches a call a rank, finite values when
+                 the last rank's chunk is padding alone, and one fp32 call
+                 with the split backward (n dq and n dk/dv launches).
+                 Reported: the ring's forward and backward ms beside the
+                 single-device call's (the ranks share the card: context,
+                 not a scaling number).
+9d. mesh_steps — two ranks on the card, full width (ViT-B/16, 6 layers, 8
+                 registers, DiffNet head), AdamW(5e-5, wd 0.01, clip 1.0),
+                 the weighted loss with weights (1, 1, 1), the head's
+                 DropPath and dropout active: config 3's train step (500
+                 patches, weighted CAPS, batch 8) under data = 2 and under
+                 model = 2 (6 heads and 1536 MLP features a rank), config
+                 5's (5000 patches, batch 2) under seq = 2 through the ring;
+                 fp32 with TF32 off against the single-process step on the
+                 same card, global batch and generators: loss 1e-5 and
+                 grad_norm 1e-4 relative, q 1e-3, every updated parameter
+                 2.5e-4 (the last two JAX's own mesh bounds); the ranks agree; one gather launch a step
+                 a rank and, under seq = 2, 2 x 5 flash-forward and fused-
+                 backward launches; then one bf16 step each: finite, timed.
 10. engine_config3 — BASELINE config 3 through engine.train() at full width
                  (ViT-B/16 6 layers, 8 registers, DiffNet head, 500 patches,
                  weighted CAPS with the MAGNITUDE diff map, batch 8, AdamW,
@@ -153,11 +182,20 @@ Phases, each printing one JSON line:
                  1e-6). Reported: trained triplets/s beside the bare
                  pairwise step's, decode and wait ms per batch, the
                  device's idle share over the resumed epoch.
+12b. engine_mesh — engine.train() with mesh_data = 2 across two ranks on
+                 the card, on the engine_config3 tree (4 pairs a rank: the
+                 global batch 8), bf16, one epoch of train, val and test,
+                 each rank given its own output root, then a resumed train
+                 epoch. Gates: the test correlations equal on both ranks;
+                 rank 0 alone wrote files; best.npz equal to rank 0's
+                 trained model bit for bit; the resume starts at epoch 2;
+                 one gather launch a step a rank.
 13. kernels    — one JSON object per kernel: time, bound, plain time,
                  library time in bf16 and in fp32 (the fp32 bound at the
                  3xTF32 rate, beside it at the FFMA rate), launches on the
-                 main path, in the fp32 runs, in the engine phases and in
-                 the remat step.
+                 main path, in the fp32 runs, in the engine phases, in the
+                 remat step, on the ring (flash) and in the mesh steps
+                 (gather).
 
 The build phase also reports the host image decoder's build seconds and the
 codecs it holds.
@@ -2181,6 +2219,427 @@ def phase_model_extras(card, refs, dists):
     return out
 
 
+# --------------------------------------------------------------------------
+# mesh phases: ranks as child processes of this script, all on cuda:0 over
+# gloo (NCCL cannot put two ranks on one device); the ranks share the card,
+# so their times are context, not a scaling number
+# --------------------------------------------------------------------------
+
+MESH_CHILD = "--mesh-child"
+MESH_NOTE = ("ranks are processes sharing cuda:0 over gloo (NCCL cannot put two ranks on one "
+             "device; gloo stages all-gathers and sends through pinned host buffers): times "
+             "are context, not a scaling number")
+RING_ROWS, RING_TOKENS = 2 * PAIRS, 5120     # config 5's 5009 tokens padded to 64 * 80
+RING_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}   # (output, gradients)
+# mesh step against the single-process step, fp32: the loss relative; the
+# grad norm relative at JAX's own mesh-test bound (tests/test_train_steps.py),
+# since it is ruled by the head's gradients, which scale with cls_ref -
+# cls_dist, a difference a few percent of the CLS vectors' norm (the bf16
+# note above) that multiplies the rounding of other summation orders by
+# 30 or more: 8e-6 even under data = 2, whose rows see the same math
+# (measured on an H100 80GB HBM3); every updated parameter's max abs
+# difference at JAX's bound
+MESH_LOSS_TOL, MESH_NORM_TOL, MESH_PARAM_TOL = 1e-5, 1e-4, 2.5e-4
+
+
+def run_ranks(phase, world, spec, timeout=420):
+    """Run ``phase``'s child function in ``world`` processes of this script
+    and return each rank's result; a rank that fails raises here with every
+    rank's output. Every process is ended before this returns."""
+    job = tempfile.mkdtemp(prefix="vtamiq_mesh_")
+    with open(os.path.join(job, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    here = os.path.abspath(__file__)
+    procs = [subprocess.Popen([sys.executable, here, MESH_CHILD, phase, str(r), str(world), job],
+                              cwd=os.path.dirname(here), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    try:
+        deadline = time.perf_counter() + timeout
+        try:
+            logs = [p.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0]
+                    for p in procs]
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            logs = [p.communicate()[0] for p in procs]
+            raise RuntimeError(f"{phase}: ranks still running after {timeout} s:\n"
+                               + "\n---\n".join(log[-6000:] for log in logs))
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError(f"{phase}: a rank failed (exit codes "
+                               f"{[p.returncode for p in procs]}):\n" + "\n---\n".join(
+                                   log[-6000:] for log in logs))
+        results = []
+        for r in range(world):
+            with open(os.path.join(job, f"rank{r}.json")) as f:
+                results.append(json.load(f))
+        return results
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(job, ignore_errors=True)
+
+
+def mesh_child(phase, rank, world, job):
+    """One rank of a mesh phase (``python3 chip_smoke.py --mesh-child``)."""
+    from vtamiq_tpu_torch.parallel import distributed
+    rank, world = int(rank), int(world)
+    with open(os.path.join(job, "spec.json")) as f:
+        spec = json.load(f)
+    distributed.initialize(f"file://{job}/store", world, rank, local_device="cuda:0",
+                           backend="gloo")
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        result = MESH_CHILDREN[phase](spec, rank, world)
+    finally:
+        distributed.shutdown()
+    with open(os.path.join(job, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def _barrier():
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+
+
+def _rel(got, want):
+    """max |got - want| / max |want| in fp32 (the max abs error where want
+    is zero: padding keys' gradients)."""
+    err, scale = (got.float() - want.float()).abs().max(), want.float().abs().max()
+    return float(err / scale) if scale > 0 else float(err)
+
+
+def _cuda_ms(fn, reps=2):
+    """Median ms of ``fn`` over ``reps`` calls, CUDA events (after the
+    gate's call has warmed it up)."""
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def ring_child(spec, rank, world):
+    """The ring over ``world`` ranks at config 5's shapes against
+    ``ops/attention.py::flash_attention`` on the whole sequence on the same
+    card, in bf16 and fp32: 5009 valid tokens, then a mask that leaves the
+    last rank's chunk padding alone; in fp32 the split backward too."""
+    from vtamiq_tpu_torch.ops.attention import flash_attention
+    from vtamiq_tpu_torch.parallel.mesh import make_mesh
+    from vtamiq_tpu_torch.parallel.ring_attention import make_ring_attention, shard_seq
+    mesh = make_mesh(data=1, model=1, seq=world)
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        q, k, v, go = (torch.randn(RING_ROWS, RING_TOKENS, HEADS, HEAD_DIM, generator=gen,
+                                   device="cuda").to(getattr(torch, dtype)) for _ in range(4))
+        cases = [("config5", S_VALID, True), ("last_rank_padding", RING_TOKENS
+                                              - RING_TOKENS // world, True)]
+        if dtype == "float32" and world == 2:
+            cases.append(("config5_split_backward", S_VALID, False))
+        for case, valid, fused in cases:
+            mask = (torch.arange(RING_TOKENS, device="cuda") < valid).expand(
+                RING_ROWS, RING_TOKENS).contiguous()
+            full = [t.clone().requires_grad_() for t in (q, k, v)]
+            ref = flash_attention(*full, mask)
+            ref.backward(go)
+            loc = [shard_seq(t, mesh).clone().requires_grad_() for t in (q, k, v)]
+            ring = make_ring_attention(mesh, fused_bwd=fused)
+            _barrier()
+            flash_kernel.reset_launches()
+            o = ring(*loc, shard_seq(mask, mesh))
+            o.backward(shard_seq(go, mesh))
+            torch.cuda.synchronize()
+            row = {"valid_tokens": valid, "fused_backward": fused,
+                   "launches": dict(flash_kernel.launches),
+                   "finite": bool(torch.isfinite(o).all()) and all(
+                       bool(torch.isfinite(t.grad).all()) for t in loc),
+                   "max_rel_err": {"out": _rel(o, shard_seq(ref, mesh)), **{
+                       n: _rel(t.grad, shard_seq(f.grad, mesh))
+                       for n, t, f in zip(("dq", "dk", "dv"), loc, full)}}}
+            if case == "config5":
+                o = None
+                _barrier()
+                fwd_ms = _cuda_ms(lambda: ring(*loc, shard_seq(mask, mesh)))
+                res = ring(*loc, shard_seq(mask, mesh))
+                _barrier()
+                bwd_ms = _cuda_ms(lambda: res.backward(shard_seq(go, mesh), retain_graph=True))
+                row.update(ring_forward_ms=fwd_ms, ring_backward_ms=bwd_ms)
+                del res
+                _barrier()
+                if rank == 0:  # the single-device call, alone on the card
+                    full2 = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+                    row["single_device_forward_ms"] = _cuda_ms(
+                        lambda: flash_attention(*full2, mask))
+                    ref2 = flash_attention(*full2, mask)
+                    row["single_device_backward_ms"] = _cuda_ms(
+                        lambda: ref2.backward(go, retain_graph=True))
+                _barrier()
+            out[f"{dtype}/{case}"] = row
+            del full, ref, loc, o
+    return out
+
+
+def phase_ring_attention(card):
+    """Worlds of 2 and 4 ranks on the one card: the ring against
+    single-device flash attention, launches, padding alone, times."""
+    lines, gates = {}, {}
+    for world in (2, 4):
+        results = run_ranks("ring", world, {})
+        for key in results[0]:
+            dtype, case = key.split("/")
+            out_tol, grad_tol = RING_TOL[dtype]
+            for rank, res in enumerate(results):
+                row = res[key]
+                errs = row["max_rel_err"]
+                want = ({"flash_fwd": world, "flash_bwd_fused": world, "flash_bwd_dq": 0,
+                         "flash_bwd_dkv": 0} if row["fused_backward"] else
+                        {"flash_fwd": world, "flash_bwd_fused": 0, "flash_bwd_dq": world,
+                         "flash_bwd_dkv": world})
+                gates[f"n{world}/{key}/rank{rank}"] = (
+                    row["finite"] and errs["out"] <= out_tol
+                    and max(errs["dq"], errs["dk"], errs["dv"]) <= grad_tol
+                    and row["launches"] == want)
+        lines[f"n{world}"] = {"rank0": results[0], "rank_last": results[-1]}
+    emit({"phase": "ring_attention", "card": card, "note": MESH_NOTE,
+          "config": f"config 5's attention: {RING_ROWS} rows, {HEADS} heads, {S_VALID} valid "
+                    f"tokens padded to {RING_TOKENS}, head dim {HEAD_DIM}; bf16, and fp32 with "
+                    "TF32 off; each rank holds 1/n of the tokens; reference: "
+                    "ops/attention.py::flash_attention on the whole sequence, same card",
+          "tolerances": {"output_and_gradients_rel_max": RING_TOL},
+          "worlds": lines, "gates": gates})
+    if not all(gates.values()):
+        raise AssertionError(f"ring_attention gates failed: "
+                             f"{[k for k, v in gates.items() if not v]}")
+    split = lines["n2"]["rank0"]["float32/config5_split_backward"]["launches"]
+    return {"flash_bwd_dq": split["flash_bwd_dq"], "flash_bwd_dkv": split["flash_bwd_dkv"]}
+
+
+MESH_STEP_CASES = [  # name, (data, model, seq), patches, batch, sampler
+    ("data2", (2, 1, 1), N, PAIRS, "magnitude"),
+    ("model2", (1, 2, 1), N, PAIRS, "magnitude"),
+    ("seq2", (1, 1, 2), N_LONG, 2, "uniform"),
+]
+
+
+def _mesh_train(cfg, base, mesh, sampler, patches, batch, raw, qs, dtype):
+    """One make_train_step step of a fresh copy of ``base`` (its TP shard
+    under a mesh) on ``raw``/``qs`` rows: (metrics, q, full updated
+    parameters, seconds, launches)."""
+    from vtamiq_tpu_torch.parallel.mesh import shard_batch, shard_params, unshard_params
+    model = shard_params(copy.deepcopy(base).cuda(), mesh) if mesh is not None \
+        else copy.deepcopy(base).cuda()
+    adamw = Optimizer("AdamW", lambda count: torch.tensor(5e-5), weight_decay=0.01)
+    state = adamw.init({n: p.detach() for n, p in model.named_parameters()})
+    ecfg = ExtractConfig(patch_count=patches, patch_dim=P,
+                         gather_dtype="float32" if dtype == torch.float32 else "bfloat16")
+    step = make_train_step(cfg, sampler, ecfg, adamw, weighted_loss=True, compute_dtype=dtype,
+                           mesh=mesh)
+    rows = (raw, qs) if mesh is None else shard_batch((raw, qs), mesh)
+    sample_gen = torch.Generator().manual_seed(SEED)
+    model_gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if mesh is not None:
+        _barrier()
+    torch.cuda.synchronize()
+    flash_kernel.reset_launches()
+    gather_kernel.launches = 0
+    t0 = time.perf_counter()
+    metrics, q = step(model, state, build_freeze_mask(model, False), *rows, batch, (1.0, 1.0, 1.0),
+                      sample_gen, model_gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"gather": gather_kernel.launches, **_flash_counts()}
+    full = unshard_params(model, mesh) if mesh is not None else \
+        {n: p.detach() for n, p in model.named_parameters()}
+    return metrics, q, full, seconds, launches
+
+
+def mesh_steps_child(spec, rank, world):
+    """Each case's fp32 step on the mesh, held (on rank 0) against the
+    single-process step on the same card, global batch and generators; then
+    one bf16 step, timed."""
+    from vtamiq_tpu_torch.parallel.mesh import make_mesh
+    cfg = VTAMIQConfig(vit=get_vit_config(num_keep_layers=6, num_extra_tokens=8))
+    base = init_vtamiq_params(cfg, torch.Generator().manual_seed(SEED))
+    refs, dists = synthetic_pairs(PAIRS)
+    raw = torch.from_numpy(np.stack([np.stack([r, d]) for r, d in zip(refs, dists)])).cuda()
+    qs = torch.from_numpy(np.random.default_rng(SEED).uniform(0, 1, PAIRS).astype(np.float32)
+                          ).cuda()
+    samplers = {"magnitude": weighted_sampler(sampling.DIFF_TYPE_MAGNITUDE),
+                "uniform": PatchSampler()}
+    out = {}
+    for name, shape, patches, batch, sampler in MESH_STEP_CASES:
+        mesh = make_mesh(*shape)
+        args = (samplers[sampler], patches, batch, raw[:batch], qs[:batch])
+        metrics, q, full, seconds, launches = _mesh_train(cfg, base, mesh, *args, torch.float32)
+        row = {"mesh": dict(zip(("data", "model", "seq"), shape)), "patches": patches,
+               "batch": batch, "sampler": sampler, "fp32_step_s": seconds,
+               "fp32_launches": launches, "loss": float(metrics["loss"]),
+               "grad_norm": float(metrics["grad_norm"]), "q": q.float().cpu().tolist()}
+        _barrier()
+        if rank == 0:  # the single-process step, alone on the card
+            m1, q1, full1, s1, l1 = _mesh_train(cfg, base, None, *args, torch.float32)
+            row.update(single_step_s=s1, single_launches=l1,
+                       loss_rel_err=abs(row["loss"] - float(m1["loss"])) / abs(float(m1["loss"])),
+                       grad_norm_rel_err=abs(row["grad_norm"] - float(m1["grad_norm"]))
+                       / abs(float(m1["grad_norm"])),
+                       q_max_abs_err=float((q.float() - q1.float()).abs().max()),
+                       param_max_abs_err=max(float((full[n] - full1[n]).abs().max())
+                                             for n in full1),
+                       params_compared=len(full1))
+            del full1
+        del full
+        _barrier()
+        m16, _, _, s16, l16 = _mesh_train(cfg, base, mesh, *args, torch.bfloat16)
+        row.update(bf16_step_s=s16, bf16_launches=l16, bf16_loss=float(m16["loss"]),
+                   bf16_finite=bool(np.isfinite([float(m16["loss"]),
+                                                 float(m16["grad_norm"])]).all()))
+        out[name] = row
+        _barrier()
+    return out
+
+
+def phase_mesh_steps(card):
+    """Config 3's train step under data = 2 and model = 2, config 5's under
+    seq = 2, two processes on the card, against the single-process step."""
+    results = run_ranks("mesh_steps", 2, {})
+    layers = 6 - 1   # the last layer's CLS-only queries take no flash call
+    gates = {}
+    for name, shape, patches, batch, _ in MESH_STEP_CASES:
+        r0, r1 = results[0][name], results[1][name]
+        flash = 2 * layers if shape[2] == 2 else 0
+        want = {"gather": 1, "flash_fwd": flash, "flash_bwd_fused": flash, "flash_bwd_dq": 0,
+                "flash_bwd_dkv": 0}
+        gates[name] = {
+            "loss_rel": r0["loss_rel_err"] <= MESH_LOSS_TOL,
+            "grad_norm_rel": r0["grad_norm_rel_err"] <= MESH_NORM_TOL,
+            "q": r0["q_max_abs_err"] <= FP32_Q_TOL,
+            "params": r0["param_max_abs_err"] <= MESH_PARAM_TOL,
+            "ranks_agree": r0["loss"] == r1["loss"] and r0["q"] == r1["q"],
+            "launches_per_rank": r0["fp32_launches"] == want and r1["fp32_launches"] == want,
+            "bf16_finite": r0["bf16_finite"] and r1["bf16_finite"]}
+    emit({"phase": "mesh_steps", "card": card, "note": MESH_NOTE,
+          "config": f"ViT-B/16 6 layers, 8 registers, DiffNet head, {H}x{W}, AdamW(5e-5, wd "
+                    "0.01, clip 1.0), the weighted loss MAE + rank + Pearson (weights 1, 1, 1: "
+                    "batch 2's rank and Pearson terms alone are degenerate), DropPath and "
+                    "dropout of the head active; config 3 (weighted CAPS, MAGNITUDE, 500 patches, batch 8) under "
+                    "data = 2 and model = 2, config 5 (5000 patches, batch 2) under seq = 2; "
+                    "fp32 with TF32 off against the single-process step on the same card, "
+                    "then one bf16 step",
+          "tolerances": {"loss_rel": MESH_LOSS_TOL, "grad_norm_rel": MESH_NORM_TOL,
+                         "q_abs": FP32_Q_TOL, "param_abs": MESH_PARAM_TOL},
+          "rank0": results[0], "rank1_loss": {n: results[1][n]["loss"] for n in results[1]},
+          "gates": gates})
+    failed = {n: g for n, g in gates.items() if not all(g.values())}
+    if failed:
+        raise AssertionError(f"mesh_steps gates failed: {failed}")
+    return {"gather": sum(results[0][n]["fp32_launches"]["gather"] for n in results[0]),
+            "flash_fwd": results[0]["seq2"]["fp32_launches"]["flash_fwd"],
+            "flash_bwd_fused": results[0]["seq2"]["fp32_launches"]["flash_bwd_fused"]}
+
+
+def engine_mesh_child(spec, rank, world):
+    """engine.train() with mesh_data = 2 on config 3's tree: one epoch with
+    train, val and test, each rank writing under its own output root; then
+    a train-only resume from rank 0's latest.npz."""
+    root, png = spec["root"], spec["png"]
+    with engine_configs() as C:
+        train_cls = (_subclass(datasets.KADID10kDataset, root, num_dist_images=5 * CONFIG3_TYPES)
+                     if png else
+                     _subclass(datasets.TID2013Dataset, f"{root}/train3",
+                               num_dist_images=5 * CONFIG3_TYPES))
+        C._DATASET_REGISTRY[C.DATASET_KADID10K] = (train_cls, C.setup_split_config(
+            CONFIG3_TRAIN_REFS, CONFIG3_VAL_REFS, CONFIG3_VAL_REFS))
+        C._DATASET_REGISTRY[C.DATASET_TID2013] = (_subclass(datasets.TID2013Dataset, root),
+                                                  C.setup_split_config([0], [0], [0]))
+        g = C.global_config
+        g.update(dataset=C.DATASET_KADID10K, dataset_test=C.DATASET_TID2013, device=CARD,
+                 do_train=True, do_val=True, do_test=True, is_debug=False, num_epochs=1,
+                 seed=SEED, compute_dtype="bfloat16", optimizer="AdamW",
+                 save_optimizer=True, allow_use_full_dataset=False,
+                 allow_use_full_dataset_test=False, output_dir=f"{root}/out_mesh/rank{rank}",
+                 is_verbose=False, config_validated=False, mesh_data=world)
+        C.dataset_config_base["patch_sampler_config"] = dict(
+            diff_weight=1.0, uniform_weight=0.1, grid_type=sampling.GRID_TYPE_PERTURBED,
+            diff_type=sampling.DIFF_TYPE_MAGNITUDE)
+        _set_loaders(C, PAIRS // world, N)   # global batch 8, as config 3
+        trained = {}
+        do_training = engine.do_training
+
+        def capture(*args, **kwargs):
+            result = do_training(*args, **kwargs)
+            trained.update({n: p.detach().float().cpu().clone()
+                            for n, p in result[0].named_parameters()})
+            return result
+
+        gather_kernel.launches = 0
+        engine.do_training = capture
+        t0 = time.perf_counter()
+        try:
+            test = engine.train()
+        finally:
+            engine.do_training = do_training
+        seconds = time.perf_counter() - t0
+        launches = gather_kernel.launches
+        stats = {k: list(v) for k, v in engine.last_run_stats.items()}
+        out_dir = g["output_dir_final"]
+        files = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+        best_equal = None
+        if rank == 0:
+            best = load_checkpoint(os.path.join(out_dir, "best.npz"))[
+                engine_config.MODEL_STATE_DICT]
+            best_equal = sorted(best) == sorted(k.replace(".", "|") for k in trained) and all(
+                torch.equal(torch.from_numpy(best[k.replace(".", "|")]), v)
+                for k, v in trained.items())
+        latest = [os.path.join(out_dir, "latest.npz")]
+        torch.distributed.broadcast_object_list(latest, src=0)
+        g.update(resume_checkpoint_file=latest[0], num_epochs=2, do_val=False, do_test=False,
+                 config_validated=False)
+        engine.train()
+        resume_epochs = [s["epoch"] for s in engine.last_run_stats["train"]]
+    steps = sum(s["batches"] for phase in stats.values() for s in phase)
+    return {"test_correlations": {k: float(v) for k, v in test.items()},
+            "output_root_exists": os.path.isdir(f"{root}/out_mesh/rank{rank}"),
+            "files": files, "best_npz_equals_trained_model": best_equal,
+            "resume_epochs": resume_epochs, "gather_launches": launches, "steps": steps,
+            "train": _rate(stats["train"]), "test": _rate(stats["test"]), "train_call_s": seconds}
+
+
+def phase_engine_mesh(card, root, png):
+    """engine.train() with mesh_data = 2 across two processes on the card."""
+    r0, r1 = run_ranks("engine_mesh", 2, {"root": root, "png": png})
+    gates = {
+        "test_correlations_equal_on_both_ranks": r0["test_correlations"]
+        == r1["test_correlations"],
+        "test_srocc_finite": bool(np.isfinite(r0["test_correlations"]["SROCC"])),
+        "rank0_alone_wrote_files": r0["output_root_exists"] and not r1["output_root_exists"]
+        and {"latest.npz", "best.npz", "scalars.jsonl", "config.yaml"} <= set(r0["files"]),
+        "best_npz_equals_trained_model": r0["best_npz_equals_trained_model"] is True,
+        "resume_starts_at_epoch_2": r0["resume_epochs"] == [2] and r1["resume_epochs"] == [2],
+        "gather_one_launch_per_step": r0["gather_launches"] == r0["steps"]
+        and r1["gather_launches"] == r1["steps"]}
+    emit({"phase": "engine_mesh", "card": card, "note": MESH_NOTE,
+          "config": "BASELINE config 3 through engine.train() with mesh_data = 2: the "
+                    "engine_config3 tree, 4 pairs a rank (global batch 8), bf16, one epoch "
+                    "of train, val and test, then a resumed train epoch",
+          "rank0": r0, "rank1": {k: r1[k] for k in ("test_correlations", "output_root_exists",
+                                                    "resume_epochs", "gather_launches",
+                                                    "steps")},
+          "gates": gates})
+    if not all(gates.values()):
+        raise AssertionError(f"engine_mesh gates failed: {gates}")
+    return r0
+
+
+MESH_CHILDREN = {"ring": ring_child, "mesh_steps": mesh_steps_child,
+                 "engine_mesh": engine_mesh_child}
+
+
 def main():
     name, smi = phase_device()
     phase_build()
@@ -2195,6 +2654,8 @@ def main():
     train_launches, split_launches, fp32_launches, remat_launches = phase_train_5000p(
         smi, refs, dists)
     phase_model_extras(smi, refs, dists)
+    ring_launches = phase_ring_attention(smi)
+    mesh_launches = phase_mesh_steps(smi)
     # the datasets are written only now, so that no timed phase above
     # shares the host's cores with the writers
     png = native_io.decodes("png")
@@ -2206,6 +2667,7 @@ def main():
         engine3 = phase_engine_config3(smi, data_root, png, bare_config3_pairs_per_s)
         engine5 = phase_engine_config5(smi, data_root, png)
         pieapp = phase_engine_pieapp(smi, data_root, png)
+        engine_mesh = phase_engine_mesh(smi, data_root, png)
     finally:
         for proc in writers.values():
             if proc.poll() is None:
@@ -2230,6 +2692,12 @@ def main():
                "flash_bwd_fused": "one fp32 train step of 2 pairs (fused backward)",
                "flash_bwd_dq": "one fp32 train step of 2 pairs (split backward)",
                "flash_bwd_dkv": "one fp32 train step of 2 pairs (split backward)"}
+    ring_on = dict.fromkeys(("flash_fwd", "flash_bwd_fused"),
+                            "mesh_steps, rank 0: one fp32 config 5 train step under seq = 2 "
+                            "(2 chunks in each of 5 ring layers)")
+    ring_on.update(dict.fromkeys(("flash_bwd_dq", "flash_bwd_dkv"),
+                                 "ring_attention, rank 0 of 2: one fp32 ring call with the "
+                                 "split backward"))
     kernels = [{
         "name": "gather_patches", "route": "cuda",
         "source": "vtamiq_tpu_torch/csrc/gather_patches.cu",
@@ -2248,6 +2716,11 @@ def main():
         "launches_remat": remat_launches["gather"],
         "launches_remat_on": "one bf16 train_5000p forward and backward with remat (its "
                              "patches are cut before it)",
+        "launches_mesh": mesh_launches["gather"],
+        "launches_mesh_on": "mesh_steps, rank 0: the fp32 train steps under data = 2, "
+                            "model = 2 and seq = 2 (one step each)",
+        "launches_engine_mesh": engine_mesh["gather_launches"],
+        "launches_engine_mesh_on": "engine_mesh, rank 0: every train, val and test step",
         "exact": True, "max_abs_err": k["max_abs_err"],
         "ms": k["device_ms_back_to_back"], "ms_is": "device time, back-to-back launches",
         "device_ms_l2_flushed": k["device_ms_l2_flushed"],
@@ -2270,6 +2743,8 @@ def main():
             "launches_remat": remat_launches[kname],
             "launches_remat_on": "one bf16 train_5000p forward and backward with remat (the "
                                  "forward again in each layer's recompute)",
+            "launches_ring": {**mesh_launches, **ring_launches}[kname],
+            "launches_ring_on": ring_on[kname],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "max_abs_err_fp32": row32["max_abs_err"], "ms_fp32": row32["ms"],
@@ -2284,5 +2759,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [MESH_CHILD]:
+        mesh_child(*sys.argv[2:])
+    else:
+        main()
     faulthandler.cancel_dump_traceback_later()

@@ -245,10 +245,17 @@ def test_loader_stops_its_producer_when_the_consumer_stops(trees):
 
 
 def test_loader_raises_for_multiple_processes(trees):
+    """Several processes load their slices of global batches
+    (tests/test_torch_parallel.py); a process index outside the count
+    raises."""
     tds = D.TID2013Dataset(datasets_root=trees[0])
     tds.add_split(None)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        PatchDatasetLoader(tds, "FullDataset", batch_size=2, patch_count=4, process_count=2)
+    for index, count in ((2, 2), (-1, 2), (1, 1)):
+        with pytest.raises(ValueError, match="outside"):
+            PatchDatasetLoader(tds, "FullDataset", batch_size=2, patch_count=4,
+                               process_index=index, process_count=count)
+    assert PatchDatasetLoader(tds, "FullDataset", batch_size=2, patch_count=4,
+                              process_index=1, process_count=2).process_index == 1
 
 
 def test_canonical_buckets_match_jax():

@@ -326,14 +326,15 @@ def test_recovery_from_latest_after_a_transient_fault(configs, tid_root, tmp_pat
 
 
 def test_unported_options_and_missing_card_raise(configs, tid_root, tmp_path):
-    """A mesh still raises (ROADMAP.md Queue 1 item 9); PU input, the
-    preference module and ImageNet ViT weights no longer do (their runs
-    are below); with no card the default device raises."""
-    for overrides, match in ((dict(mesh_data=2), "item 9"),):
+    """A mesh with no process group raises ValueError naming the way to
+    start one (meshes run in tests/test_torch_parallel.py); PU input, the
+    preference module and ImageNet ViT weights run (below); with no card the
+    default device raises."""
+    for overrides in (dict(mesh_data=2), dict(mesh_model=2), dict(mesh_seq=2)):
         defaults = {k: C.global_config[k] for k in overrides}
         setup_tiny(C, TID2013Dataset, tid_root, str(tmp_path / "out"), do_train=True,
                    **overrides)
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(ValueError, match="parallel.distributed.initialize"):
             engine.train()
         C.global_config.update(defaults)
     if not torch.cuda.is_available():

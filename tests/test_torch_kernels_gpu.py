@@ -578,3 +578,34 @@ def test_int8_scorer_on_card_matches_cpu_dense_calls():
     y_card = quant.dense_q8(holder, x.cuda()).cpu()
     y_cpu = quant.dense_q8(copy.deepcopy(holder).cpu(), x)
     assert (y_card - y_cpu).abs().max() <= 1e-6 * y_cpu.abs().max()
+
+
+@pytest.fixture(scope="module")
+def ring_world(tmp_path_factory):
+    """Two ranks on cuda:0 over gloo (NCCL cannot put two ranks on one
+    device), each running the ring in bf16 and in fp32 (TF32 off) and the
+    single-device flash attention on the whole sequence."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the flash kernels have no CPU mode")
+    from torch_mesh_worker import spawn_world
+    cases = [{"kind": "ring_vs_flash", "name": dtype, "device": "cuda:0", "dtype": dtype,
+              "seq": 2, "shape": [4, 1024, 4, 64], "valid": 1000, "seed": 3}
+             for dtype in ("bfloat16", "float32")]
+    return spawn_world(2, cases, {}, str(tmp_path_factory.mktemp("ring_gpu"))).results()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,out_tol,grad_tol", [("float32", 1e-5, 1e-4),
+                                                    ("bfloat16", 2e-2, 2e-2)])
+def test_ring_matches_single_device_flash_on_card(ring_world, dtype, out_tol, grad_tol):
+    """The ring of two ranks sharing the card against flash attention over
+    the whole sequence: each rank's output and dq, dk, dv chunks, relative
+    to the largest magnitude, and one flash forward and fused backward
+    launch a chunk a rank."""
+    for _, values in ring_world:
+        res = values[dtype]
+        assert res["finite"]
+        assert res["errors"]["out"] <= out_tol, res
+        for key in ("dq", "dk", "dv"):
+            assert res["errors"][key] <= grad_tol, res
+        assert res["launches"]["flash_fwd"] == 2 and res["launches"]["flash_bwd_fused"] == 2

@@ -20,7 +20,12 @@ Layer map (module names follow the JAX package):
                 extraction stage and the train/eval steps (``steps``), the
                 run configs (``config``), the training engine
                 (``engine.train()``) and the run scripts (``run_custom``,
-                ``run_multi``).
+                ``run_multi``, ``multihost_train``).
+- ``parallel`` — data, tensor and sequence parallelism across processes:
+                the (data, model, seq) mesh and its tensor-parallel rules,
+                multi-process set-up (torchrun or by hand), the
+                hand-written collectives and ring attention over the flash
+                kernels.
 - ``utils``   — logging, the scalar writer, accumulators, timers, retries,
                 profiling, the measurement harness, image tools.
 - ``inference`` / ``serving`` — ``VTAMIQScorer`` and the HTTP server.

@@ -1,7 +1,7 @@
 """Host-side input pipeline: split iteration, size-bucketed batching,
 threaded prefetch, native batch decode into pinned host tensors.
 
-Port of ``vtamiq_tpu/data/pipeline.py`` for one process:
+Port of ``vtamiq_tpu/data/pipeline.py``:
 
 - Per-split knobs (patch count, flips, aligned patches, repeats) are
   immutable loader state; the loader yields whole decoded image batches and
@@ -19,6 +19,14 @@ Port of ``vtamiq_tpu/data/pipeline.py`` for one process:
   ``pin_memory`` that tensor is pinned, so the engine's
   ``.to(device, non_blocking=True)`` copies it without a staging copy.
 - A background thread prefetches batches, so decode overlaps the device.
+- Several processes (``process_index`` / ``process_count``: a mesh's data
+  rank and data size) walk one global batch schedule in lockstep: every
+  process derives the same permutation, flips and bucket grouping from
+  (seed, epoch) and decodes only its contiguous slice of each global batch
+  of ``batch_size * process_count`` items, so batch counts, bucket shapes
+  and the global valid counts agree across processes by construction (a
+  strided slice cannot promise that once bucketing or partial batches
+  are involved). Ranks that share a data index load the same slice.
 
 HDR data, image caches and datasets that override ``img_pretransform``
 decode one sample at a time through ``PatchFRIQADataset.get_sample``, as in
@@ -55,8 +63,11 @@ ImageBatch = namedtuple(
         "valid",     # int: first `valid` items are real; rest are pad repeats
         "img_hw",    # (B, 2) int32 tensor of TRUE image sizes when batches
                      # are padded to canonical buckets; else None
+        "global_valid",  # several processes: the valid count of the GLOBAL
+                         # batch this slice belongs to (the steps' loss
+                         # mask); None for one process
     ],
-    defaults=(None,),
+    defaults=(None, None),
 )
 
 
@@ -83,13 +94,13 @@ class PatchDatasetLoader:
         to <= that many canonical (H, W) shapes; 0 batches by exact size,
         right for fixed-size datasets (TID, KADID, CSIQ, PIPAL).
         ``pin_memory``: batches in pinned host memory (needs a CUDA build of
-        PyTorch)."""
+        PyTorch). ``process_index`` / ``process_count``: this process's
+        slice of global batches of ``batch_size * process_count`` items
+        (see the module docstring)."""
         if not dataset.has_split(split_name):
             raise ValueError(f"Dataset {dataset.name} has no split [{split_name}].")
-        if int(process_index) != 0 or int(process_count) != 1:
-            raise NotImplementedError(
-                "multi-process loading (process_count > 1) is not ported to "
-                "vtamiq_tpu_torch; see ROADMAP.md Queue 1 item 9")
+        if not 0 <= int(process_index) < max(1, int(process_count)):
+            raise ValueError(f"process_index {process_index} outside [0, {process_count})")
         self.dataset = dataset
         self.split_name = split_name
         self.batch_size = int(batch_size)
@@ -104,6 +115,8 @@ class PatchDatasetLoader:
         self.pad_partial_batches = pad_partial_batches
         self.max_size_buckets = int(max_size_buckets)
         self.pin_memory = bool(pin_memory)
+        self.process_index = int(process_index)
+        self.process_count = max(1, int(process_count))
         self._size_buckets = None  # computed lazily from the split's sizes
         self._epoch = 0
         self._size_cache: Dict[int, Tuple[int, int]] = {}
@@ -124,7 +137,7 @@ class PatchDatasetLoader:
         ceil (or floor, without padding) division; group counts do not
         depend on the epoch's permutation."""
         reps = self.num_repeats_data
-        bs = self.batch_size
+        bs = self.batch_size * self.process_count  # batches assemble globally
         if self._fixed_size() is not None:
             n = len(self.dataset.split_indices(self.split_name))
             if self.pad_partial_batches:
@@ -198,7 +211,8 @@ class PatchDatasetLoader:
     def _host_tensor(self, shape, dtype=torch.float32) -> torch.Tensor:
         return torch.empty(shape, dtype=dtype, pin_memory=self.pin_memory)
 
-    def _finish(self, items: List[tuple], imgs_raw: torch.Tensor, valid: int) -> ImageBatch:
+    def _finish(self, items: List[tuple], imgs_raw: torch.Tensor, valid: int,
+                global_valid: Optional[int] = None) -> ImageBatch:
         """items: (index, q, ..., true (h, w)) of the batch, pads included."""
         qs = self._host_tensor((len(items),))
         qs.copy_(torch.tensor([it[1] for it in items], dtype=torch.float32))
@@ -207,7 +221,7 @@ class PatchDatasetLoader:
         if self.max_size_buckets > 0:
             img_hw = self._host_tensor((len(items), 2), torch.int32)
             img_hw.copy_(torch.tensor([it[-1] for it in items], dtype=torch.int32))
-        return ImageBatch(qs, imgs_raw, indices, valid, img_hw)
+        return ImageBatch(qs, imgs_raw, indices, valid, img_hw, global_valid)
 
     def _use_native_batch_decode(self) -> bool:
         """The batch decoder serves plain 8-bit datasets; HDR data, image
@@ -221,12 +235,16 @@ class PatchDatasetLoader:
             return False
         return native_io.available()
 
-    def _decode_native(self, bucket: List[tuple], bucket_hw: Tuple[int, int]) -> ImageBatch:
+    def _decode_native(self, bucket: List[tuple], bucket_hw: Tuple[int, int],
+                       valid: Optional[int] = None,
+                       global_valid: Optional[int] = None) -> ImageBatch:
         """bucket items: (index, q, paths, (h_flip, v_flip), true (h, w));
         each image decodes into its slot of one (B, K, bh, bw, 3) tensor;
-        pad items copy the last real one."""
+        pad items copy the last real one. A scheduled slice (``valid``
+        given) holds batch_size items, its pads decoded as they are."""
         t0 = time.perf_counter()
-        valid = len(bucket)
+        if valid is None:
+            valid = len(bucket)
         k = len(bucket[0][2])
         bh, bw = bucket_hw
         out = self._host_tensor((self.batch_size, k, bh, bw, 3))
@@ -243,10 +261,10 @@ class PatchDatasetLoader:
                 vflips.append(vf)
         native_io.decode_batch_into(paths, sizes, ptrs, [bw * 3] * len(paths),
                                     h_flips=hflips, v_flips=vflips)
-        bucket = bucket + [bucket[-1]] * (self.batch_size - valid)
-        if valid < self.batch_size:
+        if len(bucket) < self.batch_size:
+            bucket = bucket + [bucket[-1]] * (self.batch_size - valid)
             out[valid:] = out[valid - 1]
-        batch = self._finish(bucket, out, valid)
+        batch = self._finish(bucket, out, valid, global_valid)
         self.decode_seconds.append(time.perf_counter() - t0)
         return batch
 
@@ -307,10 +325,97 @@ class PatchDatasetLoader:
             if bucket and self.pad_partial_batches:
                 yield self._make_batch(bucket)
 
+    # -- multi-process lockstep schedule -------------------------------------
+
+    def _epoch_schedule(self, rng) -> List[tuple]:
+        """The global batch schedule, the same in every process (the same
+        rng draws): (bucket_hw, items, global_valid) per global batch, each
+        ``items`` (index, q, (h_flip, v_flip), true_hw) of exactly
+        ``batch_size * process_count`` entries (a final partial global batch
+        pads by repeating its last item). Only file headers are read here."""
+        canonical = self.size_buckets()
+        g = self.batch_size * self.process_count
+        schedule: List[tuple] = []
+        buckets: Dict[Tuple[int, int], list] = {}
+        for index in self._epoch_indices(rng):
+            index = int(index)
+            h_flip = v_flip = False
+            if self.allow_img_flip:
+                h_flip = bool(rng.random() < 0.5)
+                v_flip = bool(rng.random() < 0.5)
+            true_hw = self._item_size_cached(index)
+            size = assign_bucket(true_hw, canonical) if canonical is not None else true_hw
+            bucket = buckets.setdefault(size, [])
+            bucket.append((index, float(self.dataset.qs[index]), (h_flip, v_flip), true_hw))
+            if len(bucket) == g:
+                schedule.append((size, bucket, g))
+                buckets[size] = []
+        for size, bucket in buckets.items():
+            if bucket and self.pad_partial_batches:
+                valid = len(bucket)
+                schedule.append((size, bucket + [bucket[-1]] * (g - valid), valid))
+        return schedule
+
+    def _decode_slice(self, items: List[tuple], bucket_hw: Tuple[int, int], valid: int,
+                      global_valid: int) -> ImageBatch:
+        """Decode this process's scheduled items, pads included, one sample
+        at a time, flipping as the schedule drew."""
+        t0 = time.perf_counter()
+        per_item = []
+        for index, _q, (hf, vf), _true_hw in items:
+            _, raws, _ = self.dataset.get_sample(index, rng=None, allow_img_flip=False,
+                                                 compute_norm=False)
+            sample = []
+            for im in raws:
+                if hf:
+                    im = im[:, ::-1]
+                if vf:
+                    im = im[::-1]
+                im = np.ascontiguousarray(im)
+                if self.max_size_buckets > 0 and im.shape[:2] != tuple(bucket_hw):
+                    im = pad_to_bucket(im, bucket_hw)
+                sample.append(im)
+            per_item.append(np.stack(sample))
+        stacked = np.stack(per_item).astype(np.float32)
+        out = self._host_tensor(stacked.shape)
+        out.copy_(torch.from_numpy(stacked))
+        batch = self._finish(items, out, valid, global_valid)
+        self.decode_seconds.append(time.perf_counter() - t0)
+        return batch
+
+    def _produce_scheduled(self, rng) -> Iterator[ImageBatch]:
+        """Every process walks the same schedule and decodes its contiguous
+        slice of each global batch. ``valid`` is the slice's leading-valid
+        count (the global pads are a suffix of the global batch);
+        ``global_valid`` feeds the steps' loss mask. A format the native
+        build lacks shows on the first batch, and the epoch then decodes
+        sample by sample, as with one process."""
+        b, p = self.batch_size, self.process_index
+        native = self._use_native_batch_decode()
+        for k, (bucket_hw, items, gvalid) in enumerate(self._epoch_schedule(rng)):
+            local = items[p * b:(p + 1) * b]
+            lvalid = int(np.clip(gvalid - p * b, 0, b))
+            if native:
+                try:
+                    yield self._decode_native(
+                        [(index, q, self.dataset.sample_paths(index), flips, true_hw)
+                         for index, q, flips, true_hw in local], bucket_hw, lvalid, gvalid)
+                    continue
+                except native_io.CodecUnavailableError as e:
+                    if k:
+                        raise
+                    log_warn(f"loader {self.dataset.name}/{self.split_name}: {e}; "
+                             "decoding sample by sample")
+                    native = False
+            yield self._decode_slice(local, bucket_hw, lvalid, gvalid)
+
     def _produce(self) -> Iterator[ImageBatch]:
         epoch = self._epoch
         self._epoch += 1
         rng = np.random.default_rng((self.seed, epoch))
+        if self.process_count > 1:
+            yield from self._produce_scheduled(rng)
+            return
         if self._use_native_batch_decode():
             # a format the native build lacks shows on the first batch; the
             # epoch then restarts on the per-sample path (PIL, or a raise).

@@ -183,13 +183,16 @@ def params_from_jax(flat: Dict[str, np.ndarray], model: Optional[nn.Module] = No
     return model
 
 
-def params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
-    """The inverse of ``params_from_jax``: a module's parameters as the JAX
-    package's ``|``-joined leaf paths -> numpy arrays (fp32 copies on the
-    host; int8 leaves of a quantized module stay int8)."""
+def params_to_jax(model) -> Dict[str, np.ndarray]:
+    """The inverse of ``params_from_jax``: a module's parameters (or a
+    {name: tensor} state, such as ``parallel.mesh.unshard_params`` gathers
+    from a tensor-parallel model) as the JAX package's ``|``-joined leaf
+    paths -> numpy arrays (fp32 copies on the host; int8 leaves of a
+    quantized module stay int8)."""
+    state = model.state_dict() if isinstance(model, nn.Module) else model
     return {k.replace(".", _SEP): v.detach().to(
                 "cpu", v.dtype if v.dtype == torch.int8 else torch.float32).numpy().copy()
-            for k, v in model.state_dict().items()}
+            for k, v in state.items()}
 
 
 def merge_params(model: nn.Module, loaded: Dict[str, torch.Tensor],

@@ -27,6 +27,10 @@ replaces the quadratic attention of every layer but the last, whose
 
 The token axis is padded only on request (``pad_seq_to``; the JAX package
 pads to 128 by default, for TPU lanes), with the padding masked as keys.
+Under a mesh (``vit_forward(mesh=...)``, ``parallel/``) the attention and
+MLP run tensor-parallel over its "model" ranks (Megatron: the column- and
+row-parallel denses with one all-reduce a sublayer) and the tokens split
+over its "seq" ranks, attention running the ring.
 ``load_vit_npz`` reads ImageNet ViT weights in the ``ViT-B_16.npz`` layout.
 """
 
@@ -227,20 +231,46 @@ def dense(p: Dense, x: torch.Tensor, dtype=None, out_dtype=None) -> torch.Tensor
         return dense_q8(p, x, out_dtype or dtype)
     dtype = dtype or x.dtype
     out_dtype = out_dtype or dtype
+    return _product(p, x, dtype, out_dtype) + p.bias.to(out_dtype)
+
+
+def _product(p: Dense, x: torch.Tensor, dtype, out_dtype) -> torch.Tensor:
+    """x @ kernel in ``dtype``, rounded once to ``out_dtype``."""
     if out_dtype == dtype:
-        y = x.to(dtype) @ p.kernel.to(dtype)
-    else:
-        # e.g. bf16 inputs feeding an fp32 stream ("mixed"): bf16 products
-        # are exact in fp32, so an fp32 product of the upcast inputs is the
-        # fp32-accumulated bf16 product
-        y = (x.to(dtype).float() @ p.kernel.to(dtype).float()).to(out_dtype)
-    return y + p.bias.to(out_dtype)
+        return x.to(dtype) @ p.kernel.to(dtype)
+    # e.g. bf16 inputs feeding an fp32 stream ("mixed"): bf16 products
+    # are exact in fp32, so an fp32 product of the upcast inputs is the
+    # fp32-accumulated bf16 product
+    return (x.to(dtype).float() @ p.kernel.to(dtype).float()).to(out_dtype)
+
+
+def dense_row_parallel(p: Dense, x: torch.Tensor, group, dtype=None,
+                       out_dtype=None) -> torch.Tensor:
+    """``dense`` of a kernel split by input features over the model ranks of
+    ``group`` (x holds this rank's features): the partial products are
+    summed over the group in fp32 (``parallel/comm.py::reduce_from_model``),
+    rounded once to ``out_dtype``, then the replicated bias is added."""
+    from ..parallel.comm import reduce_from_model
+    dtype = dtype or x.dtype
+    out_dtype = out_dtype or dtype
+    partial = _product(p, x, dtype, out_dtype).float()
+    return reduce_from_model(partial, group).to(out_dtype) + p.bias.to(out_dtype)
+
+
+def _column_input(x: torch.Tensor, group) -> torch.Tensor:
+    """The input of a column-parallel dense: its gradient sums over the
+    model ranks of ``group`` (none without TP)."""
+    if group is None:
+        return x
+    from ..parallel.comm import copy_to_model
+    return copy_to_model(x, group)
 
 
 def mhsa(p: Attention, x: torch.Tensor, num_heads: int,
          mask: Optional[torch.Tensor] = None, logits_fp32: bool = False,
          q_len: Optional[int] = None, mm_dtype=None,
-         attention_fn: Optional[Callable] = None, return_attention: bool = False):
+         attention_fn: Optional[Callable] = None, return_attention: bool = False,
+         tp_group=None):
     """Multi-head self-attention.
 
     x: (B, S, H); mask: optional (B, S) bool of valid keys (invalid keys get
@@ -249,23 +279,33 @@ def mhsa(p: Attention, x: torch.Tensor, num_heads: int,
     ``attention_fn(q, k, v, mask)`` on (B, S, heads, D) tensors replaces the
     plain quadratic form when ``q_len`` is None and ``return_attention`` is
     not set. ``return_attention``: return (out, probs) with the (B, heads,
-    S_q, S) attention probabilities in the matmul dtype."""
+    S_q, S) attention probabilities in the matmul dtype. ``tp_group``: the
+    model ranks of a tensor-parallel mesh; q, k and v then hold this rank's
+    heads (column-parallel) and ``out`` sums the ranks' partial products
+    (row-parallel)."""
     b, s, h = x.shape
     d = h // num_heads
     dtype = x.dtype
     mm = mm_dtype or dtype
+    x = _column_input(x, tp_group)
+    heads = num_heads if tp_group is None else num_heads // tp_group.size()
+
+    def project(ctx, sq):
+        ctx = ctx.reshape(b, sq, heads * d)
+        if tp_group is None:
+            return dense(p.out, ctx, mm, out_dtype=dtype)
+        return dense_row_parallel(p.out, ctx, tp_group, mm, out_dtype=dtype)
 
     if attention_fn is not None and q_len is None and not return_attention:
-        q, k, v = (dense(dp, x, mm).reshape(b, s, num_heads, d)
+        q, k, v = (dense(dp, x, mm).reshape(b, s, heads, d)
                    for dp in (p.query, p.key, p.value))
-        ctx = attention_fn(q, k, v, mask).reshape(b, s, h)
-        return dense(p.out, ctx, mm, out_dtype=dtype)
+        return project(attention_fn(q, k, v, mask), s)
 
     xq = x if q_len is None else x[:, :q_len]
     sq = xq.shape[1]
-    q = dense(p.query, xq, mm).reshape(b, sq, num_heads, d).transpose(1, 2)
-    k = dense(p.key, x, mm).reshape(b, s, num_heads, d).transpose(1, 2)
-    v = dense(p.value, x, mm).reshape(b, s, num_heads, d).transpose(1, 2)
+    q = dense(p.query, xq, mm).reshape(b, sq, heads, d).transpose(1, 2)
+    k = dense(p.key, x, mm).reshape(b, s, heads, d).transpose(1, 2)
+    v = dense(p.value, x, mm).reshape(b, s, heads, d).transpose(1, 2)
 
     if logits_fp32 or dtype == torch.float32:
         logits = q.float() @ k.float().transpose(-1, -2)
@@ -275,14 +315,18 @@ def mhsa(p: Attention, x: torch.Tensor, num_heads: int,
     if mask is not None:
         logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
     probs = torch.softmax(logits.float(), dim=-1).to(mm)
-    ctx = (probs @ v).transpose(1, 2).reshape(b, sq, h)
-    out = dense(p.out, ctx, mm, out_dtype=dtype)
+    out = project((probs @ v).transpose(1, 2), sq)
     return (out, probs) if return_attention else out
 
 
-def mlp_block(p: Mlp, x: torch.Tensor, mm_dtype=None) -> torch.Tensor:
-    y = F.gelu(dense(p.fc1, x, mm_dtype))
-    return dense(p.fc2, y, mm_dtype, out_dtype=x.dtype)
+def mlp_block(p: Mlp, x: torch.Tensor, mm_dtype=None, tp_group=None) -> torch.Tensor:
+    """fc2(gelu(fc1(x))); with ``tp_group`` fc1 holds this rank's features
+    (column-parallel) and fc2 sums the ranks' partial products
+    (row-parallel)."""
+    y = F.gelu(dense(p.fc1, _column_input(x, tp_group), mm_dtype))
+    if tp_group is None:
+        return dense(p.fc2, y, mm_dtype, out_dtype=x.dtype)
+    return dense_row_parallel(p.fc2, y, tp_group, mm_dtype, out_dtype=x.dtype)
 
 
 def adapter_block(p: Adapter, x: torch.Tensor, mm_dtype=None) -> torch.Tensor:
@@ -291,15 +335,29 @@ def adapter_block(p: Adapter, x: torch.Tensor, mm_dtype=None) -> torch.Tensor:
     return x + dense(p.up, y, mm_dtype, out_dtype=x.dtype)
 
 
+def rand_rows(shape, generator: Optional[torch.Generator], device,
+              rows: Optional[Tuple[torch.Tensor, int]] = None) -> torch.Tensor:
+    """``torch.rand(shape)`` from ``generator``. ``rows``: (index, total):
+    the leading axis is ``index`` (a (shape[0],) int64 tensor) of a global
+    batch of ``total`` rows; the draw is made for the global batch and
+    these rows are kept, so every rank of a data-parallel mesh, from a
+    generator in the same state, draws what one process draws for them."""
+    if rows is None:
+        return torch.rand(shape, generator=generator, device=device)
+    index, total = rows
+    return torch.rand((total,) + tuple(shape[1:]), generator=generator,
+                      device=device)[index.to(device)]
+
+
 def dropout(x: torch.Tensor, prob: float, generator: Optional[torch.Generator],
-            shape=None) -> torch.Tensor:
+            shape=None, rows=None) -> torch.Tensor:
     """Keep each element (or each cell of a ``shape`` that broadcasts to x)
     with probability 1 - prob and scale it by 1/keep; prob 0 is the identity.
-    ``generator`` lives on x's device."""
+    ``generator`` lives on x's device; ``rows``: see ``rand_rows``."""
     if prob <= 0.0:
         return x
-    kept = torch.rand(x.shape if shape is None else shape, generator=generator,
-                      device=x.device) < 1.0 - prob
+    kept = rand_rows(x.shape if shape is None else shape, generator, x.device, rows) \
+        < 1.0 - prob
     return apply_keep_mask(x, kept, prob)
 
 
@@ -309,22 +367,24 @@ def apply_keep_mask(x: torch.Tensor, kept: torch.Tensor, prob: float) -> torch.T
     return torch.where(kept, x / keep, torch.zeros_like(x))
 
 
-def drop_path(x: torch.Tensor, prob: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def drop_path(x: torch.Tensor, prob: float, generator: Optional[torch.Generator],
+              rows=None) -> torch.Tensor:
     """Per-sample stochastic depth (timm semantics): each item of the batch
     axis is kept whole with probability 1 - prob, scaled by 1/keep."""
-    return dropout(x, prob, generator, (x.shape[0],) + (1,) * (x.dim() - 1))
+    return dropout(x, prob, generator, (x.shape[0],) + (1,) * (x.dim() - 1), rows)
 
 
 def drop_path_masks(x: torch.Tensor, cfg: ViTConfig, train: bool,
-                    generator: Optional[torch.Generator]) -> Optional[Tuple[torch.Tensor, ...]]:
+                    generator: Optional[torch.Generator],
+                    rows=None) -> Optional[Tuple[torch.Tensor, ...]]:
     """An encoder layer's two DropPath keep masks, (B, 1, 1) bool each
     (after the attention, after the MLP), drawn from ``generator`` in that
-    order; None where DropPath does not act."""
+    order; None where DropPath does not act. ``rows``: see ``rand_rows``."""
     if not (train and cfg.vit_path_drop_active and generator is not None
             and cfg.path_drop_prob > 0.0):
         return None
     keep = 1.0 - cfg.path_drop_prob
-    return tuple(torch.rand((x.shape[0], 1, 1), generator=generator, device=x.device) < keep
+    return tuple(rand_rows((x.shape[0], 1, 1), generator, x.device, rows) < keep
                  for _ in range(2))
 
 
@@ -342,17 +402,19 @@ def encoder_layer(p: EncoderLayer, x: torch.Tensor, cfg: ViTConfig, mask=None,
                   q_len: Optional[int] = None, mm_dtype=None,
                   keep_masks: Optional[Tuple[torch.Tensor, ...]] = None,
                   attention_fn: Optional[Callable] = None, adapter_num: int = -1,
-                  return_attention: bool = False):
+                  return_attention: bool = False, tp_group=None):
     """Pre-LN block: x += DP(LS1(A(MHSA(LN(x))))); x += DP(LS2(A(MLP(LN(x))))),
     A the layer's adapter ``adapter_num`` (-1: none), DP DropPath with the
     keep masks ``keep_masks`` (``drop_path_masks``; None: no DropPath).
     With ``q_len`` the block's output covers only the first q_len tokens.
-    Returns (x, the attention probabilities with ``return_attention``, else
-    None)."""
+    ``tp_group``: the model ranks of a tensor-parallel mesh (see ``mhsa``,
+    ``mlp_block``). Returns (x, the attention probabilities with
+    ``return_attention``, else None)."""
     adapter = _layer_adapter(p, adapter_num)
     out = mhsa(p.attn, layer_norm(p.ln1, x), cfg.num_heads, mask=mask,
                logits_fp32=cfg.attn_logits_fp32, q_len=q_len, mm_dtype=mm_dtype,
-               attention_fn=attention_fn, return_attention=return_attention)
+               attention_fn=attention_fn, return_attention=return_attention,
+               tp_group=tp_group)
     h, probs = out if return_attention else (out, None)
     if adapter is not None:
         h = adapter_block(adapter["attn"], h, mm_dtype)
@@ -362,7 +424,7 @@ def encoder_layer(p: EncoderLayer, x: torch.Tensor, cfg: ViTConfig, mask=None,
         h = apply_keep_mask(h, keep_masks[0], cfg.path_drop_prob)
     x = (x if q_len is None else x[:, :q_len]) + h
 
-    h = mlp_block(p.mlp, layer_norm(p.ln2, x), mm_dtype)
+    h = mlp_block(p.mlp, layer_norm(p.ln2, x), mm_dtype, tp_group)
     if adapter is not None:
         h = adapter_block(adapter["mlp"], h, mm_dtype)
     if cfg.use_layer_scale:
@@ -450,7 +512,8 @@ def vit_forward(p: ViT, cfg: ViTConfig, patches: torch.Tensor, pos: torch.Tensor
                 generator: Optional[torch.Generator] = None,
                 attention_fn: Optional[Callable] = None, adapter_num: int = -1,
                 pad_seq_to: Optional[int] = None, pre_embedded: bool = False,
-                return_attention: bool = False, return_layers: bool = False):
+                return_attention: bool = False, return_layers: bool = False,
+                mesh=None, rows=None):
     """ViT forward over a sparse patch sequence.
 
     patches: (B, N, P, P, 3) (or pre-embedded (B, N, H)); pos: (B, N, 2) uv
@@ -467,7 +530,17 @@ def vit_forward(p: ViT, cfg: ViTConfig, patches: torch.Tensor, pos: torch.Tensor
     attention probabilities (the quadratic form, in place of
     ``attention_fn``) / output states, as (x, attentions, layers); either
     turns off the last layer's query slice. In training with ``cfg.remat``
-    each layer's activations are recomputed in the backward."""
+    each layer's activations are recomputed in the backward.
+
+    ``mesh`` (``parallel/mesh.py``): its "model" ranks run the layers tensor
+    parallel, each holding its shard (``parallel.mesh.shard_params``). Its
+    "seq" ranks split the tokens: the sequence pads to a multiple of
+    ``BLOCK * seq`` (masked), each rank keeps its chunk after the embedding
+    and the layers run the ring (``attention_fn`` must be
+    ``parallel.ring_attention.make_ring_attention_fn(mesh)``); the last
+    layer's input is all-gathered over "seq", since its ``q_len`` queries
+    read every key, so it and the rest run on every rank. ``rows``: the
+    rows' places in a global batch, for the DropPath draws (``rand_rows``)."""
     b = patches.shape[0]
     t = cfg.num_tokens
     _, mm_dtype = resolve_dtypes(compute_dtype)
@@ -483,17 +556,39 @@ def vit_forward(p: ViT, cfg: ViTConfig, patches: torch.Tensor, pos: torch.Tensor
     layers = p.encoder.layers
     n_layers = cfg.effective_num_layers
     slice_last = tokens_only and not (return_attention or return_layers)
+    tp_group, seq_group, full_mask = None, None, mask
+    if mesh is not None:
+        from ..parallel.mesh import MODEL_AXIS, SEQ_AXIS
+        if mesh.size(MODEL_AXIS) > 1:
+            tp_group = mesh.group(MODEL_AXIS)
+        if mesh.size(SEQ_AXIS) > 1:
+            if not slice_last:
+                raise ValueError("a sequence-parallel forward returns the leading tokens "
+                                 "only: no return_attention, return_layers or "
+                                 "tokens_only=False")
+            if getattr(attention_fn, "ring_mesh", None) is not mesh:
+                raise ValueError("a sequence-parallel forward needs attention_fn = "
+                                 "parallel.ring_attention.make_ring_attention_fn(mesh)")
+            from ..ops.flash_kernel import BLOCK
+            from ..parallel.ring_attention import shard_seq
+            seq_group = mesh.group(SEQ_AXIS)
+            x, full_mask = _pad_tokens(x, mask, BLOCK * mesh.size(SEQ_AXIS))
+            x = shard_seq(x, mesh)
+            mask = None if full_mask is None else shard_seq(full_mask, mesh)
     remat = cfg.remat and torch.is_grad_enabled()
     attentions: List[torch.Tensor] = []
     states: List[torch.Tensor] = []
     for i in range(n_layers):
         q_len = t if (slice_last and i == n_layers - 1) else None
         layer = layers[f"layer_{i}"]
-        keep_masks = drop_path_masks(x, cfg, train, generator)
+        if seq_group is not None and q_len is not None:
+            from ..parallel.comm import all_gather_autograd
+            x, mask = all_gather_autograd(x, seq_group, dim=1), full_mask
+        keep_masks = drop_path_masks(x, cfg, train, generator, rows)
 
-        def run(x, layer=layer, q_len=q_len, keep_masks=keep_masks):
+        def run(x, layer=layer, q_len=q_len, keep_masks=keep_masks, mask=mask):
             return encoder_layer(layer, x, cfg, mask, q_len, mm_dtype, keep_masks,
-                                 attention_fn, adapter_num, return_attention)
+                                 attention_fn, adapter_num, return_attention, tp_group)
 
         if remat:
             # the keep masks are drawn above, outside the recomputed

@@ -16,7 +16,7 @@ PReLU layers have one shared slope (init 0.25).
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -178,31 +178,32 @@ def _active(prob: float, train: bool, generator: Optional[torch.Generator]) -> f
 
 def residual_group(p: ResidualGroup, x: torch.Tensor, path_drop_prob: float = 0.0,
                    train: bool = False,
-                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """x + DP(conv(RCABs(x))); DropPath acts in training with a generator."""
+                   generator: Optional[torch.Generator] = None, rows=None) -> torch.Tensor:
+    """x + DP(conv(RCABs(x))); DropPath acts in training with a generator.
+    ``rows``: see ``vit.rand_rows``."""
     h = x
     for i in range(len(p.rcabs)):
         h = rcab(p.rcabs[f"rcab_{i}"], h)
     h = dense(p.conv, h)
-    return x + drop_path(h, _active(path_drop_prob, train, generator), generator)
+    return x + drop_path(h, _active(path_drop_prob, train, generator), generator, rows)
 
 
 def quality_decoder(p: QualityDecoder, x: torch.Tensor, path_drop_prob: float = 0.0,
                     train: bool = False,
-                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                    generator: Optional[torch.Generator] = None, rows=None) -> torch.Tensor:
     """DiffNet: the residual groups in order, then the output dense."""
     for i in range(len(p.rgs)):
-        x = residual_group(p.rgs[f"rg_{i}"], x, path_drop_prob, train, generator)
+        x = residual_group(p.rgs[f"rg_{i}"], x, path_drop_prob, train, generator, rows)
     return dense(p.conv, x)
 
 
 def q_predictor(p: QPredictor, x: torch.Tensor, prob: float = 0.0, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, rows=None) -> torch.Tensor:
     """Dropout -> H -> H/4 -> PReLU -> Dropout -> 1; the dropouts act in
     training with a generator."""
     prob = _active(prob, train, generator)
-    x = dense(p.fc1, dropout(x, prob, generator))
-    x = dropout(prelu(p.prelu.to(x.dtype), x), prob, generator)
+    x = dense(p.fc1, dropout(x, prob, generator, rows=rows))
+    x = dropout(prelu(p.prelu.to(x.dtype), x), prob, generator, rows=rows)
     return dense(p.fc2, x)
 
 
@@ -216,7 +217,8 @@ def vtamiq_forward(p: VTAMIQ, cfg: VTAMIQConfig, patches: torch.Tensor,
                    compute_dtype=torch.bfloat16, train: bool = False,
                    generator: Optional[torch.Generator] = None,
                    attention_fn: Optional[Callable] = None,
-                   adapter_num: Optional[int] = None) -> torch.Tensor:
+                   adapter_num: Optional[int] = None, mesh=None,
+                   rows: Optional[Tuple[torch.Tensor, int]] = None) -> torch.Tensor:
     """Quality scores for batched (ref, dist) patch pairs.
 
     patches: (B, 2, N, P, P, 3), axis 1 = (reference, distorted); pos:
@@ -225,7 +227,11 @@ def vtamiq_forward(p: VTAMIQ, cfg: VTAMIQConfig, patches: torch.Tensor,
     device) turns on DropPath and dropout; ``attention_fn``: see
     ``models/vit.py::mhsa``. ``adapter_num``: the Houlsby adapter the
     encoder runs; None selects adapter 0 when the ViT has adapters, -1 runs
-    none. Returns q: (B,) fp32."""
+    none. ``mesh``: run the encoder tensor- and sequence-parallel over it
+    (``vit.vit_forward``). ``rows``: (index, total), the items' rows in a
+    global batch of ``total`` items, so DropPath and dropout draw for the
+    global batch and keep these rows (``vit.rand_rows``). Returns q: (B,)
+    fp32."""
     b, k, n = patches.shape[0], patches.shape[1], patches.shape[2]
     if k != 2:
         raise ValueError(f"vtamiq_forward expects 2 towers (ref, dist); got {k}.")
@@ -239,7 +245,11 @@ def vtamiq_forward(p: VTAMIQ, cfg: VTAMIQConfig, patches: torch.Tensor,
         tokens_only=True,
         patch_mask=None if patch_mask is None else patch_mask.reshape(b * k, n),
         compute_dtype=compute_dtype, train=train, generator=generator,
-        attention_fn=attention_fn, adapter_num=adapter_num)  # (2B, T, H) fp32
+        attention_fn=attention_fn, adapter_num=adapter_num, mesh=mesh,
+        rows=None if rows is None else (
+            (rows[0].to(patches.device)[:, None] * k
+             + torch.arange(k, device=patches.device)).reshape(-1), rows[1] * k),
+    )  # (2B, T, H) fp32
 
     feats = feats.reshape(b, k, cfg.vit.num_tokens, cfg.vit.hidden_size)
     cls_diff = feats[:, 0, cfg.token_num] - feats[:, 1, cfg.token_num]  # fp32
@@ -247,9 +257,9 @@ def vtamiq_forward(p: VTAMIQ, cfg: VTAMIQConfig, patches: torch.Tensor,
         cls_diff = cls_diff * p.diff_scale
     if cfg.calibrate:
         cls_diff = quality_decoder(p.quality_decoder, cls_diff, cfg.rg_path_drop, train,
-                                   generator)
+                                   generator, rows)
     return q_predictor(p.q_predictor, cls_diff, cfg.predictor_dropout, train,
-                       generator).reshape(b)
+                       generator, rows).reshape(b)
 
 
 def vtamiq_forward_single_tower(p: VTAMIQ, cfg: VTAMIQConfig, patches: torch.Tensor,

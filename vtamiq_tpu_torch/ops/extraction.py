@@ -83,6 +83,7 @@ def get_iqa_patches(
     topleft: Optional[List[torch.Tensor]] = None,
     scale_order: Optional[torch.Tensor] = None,
     tensors: Optional[torch.Tensor] = None,
+    batch_rows: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Sample and extract multiscale patches for a batch of image sets.
 
@@ -106,6 +107,10 @@ def get_iqa_patches(
         own type (the PU-encoded images of the ``use_pu`` mode, which no
         affine ``tile_norm`` can express); the diff map still reads
         ``imgs``.
+      batch_rows: optional (first, total): the B items are rows
+        first..first+B of a global batch of ``total``; every draw is made
+        for the global batch and these rows keep theirs, so each rank of a
+        data-parallel mesh extracts what one process extracts for them.
 
     Returns patches (B, K, N, P, P, 3), pos (B, K, N, 2) fp32 uv centers in
     [0, 1), scales (B, K, N) int32 or None for a single scale; all on
@@ -143,7 +148,7 @@ def get_iqa_patches(
                 corners = patch_sampler.sample_batch(
                     generator, h, w, patch_dim, n_s, bsz,
                     1 if use_aligned_patches else k_imgs, diff=cur_diff, img_hw=cur_hw,
-                    device=dev).expand(bsz, k_imgs, 2, n_s)            # (B, K, 2, N_s)
+                    device=dev, batch_rows=batch_rows).expand(bsz, k_imgs, 2, n_s)
             sampled += 1
             if cur_hw is None:
                 hw_ratio = torch.tensor([h - half, w - half], dtype=torch.float32)
@@ -176,8 +181,9 @@ def get_iqa_patches(
     if randomize_patch_scale_order:
         n = patches.shape[2]
         if scale_order is None:
+            first, total = (0, bsz) if batch_rows is None else batch_rows
             scale_order = torch.stack([torch.randperm(n, generator=generator)
-                                       for _ in range(bsz)])
+                                       for _ in range(total)])[first:first + bsz]
         order = scale_order.to(torch.int64)[:, None, :].expand(bsz, k_imgs, n)
         patches = torch.take_along_dim(patches, order.to(dev)[..., None, None, None], dim=2)
         pos = torch.take_along_dim(pos, order.to(pos.device)[..., None], dim=2)

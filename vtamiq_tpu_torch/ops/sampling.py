@@ -597,27 +597,43 @@ class PatchSampler:
     def sample_batch(self, generator: torch.Generator, h: int, w: int, patch_dim: int,
                      num_samples: int, batch: int, draws_per_item: int = 1,
                      diff: Optional[torch.Tensor] = None,
-                     img_hw: Optional[torch.Tensor] = None, device=None) -> torch.Tensor:
+                     img_hw: Optional[torch.Tensor] = None, device=None,
+                     batch_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """(batch, draws_per_item, 2, N) fp32 float top-left corners: for each
         item in turn, ``draws_per_item`` independent draws from the CPU
         ``generator``. ``diff``: (batch, H, W) diff maps; ``img_hw``: (batch, 2)
-        true sizes when (h, w) is a padded bucket.
+        true sizes when (h, w) is a padded bucket. ``batch_rows``: (first,
+        total): the items are rows first..first+batch of a global batch of
+        ``total``; the generator draws for every global item in turn and
+        these rows keep theirs (a data-parallel rank's share of one
+        process's draws).
 
         Uniform sampling places the corners on the CPU and returns them
         there. Weighted sampling runs on ``device`` (default: the diff's),
         batched over every draw at once, and returns them there."""
+        first, total = (0, batch) if batch_rows is None else batch_rows
         if self.is_uniform:
             hw = None if img_hw is None else torch.as_tensor(img_hw).cpu()
-            return torch.stack([torch.stack([
-                sample_positions_uniform(generator, h, w, patch_dim, num_samples,
-                                         self.perturbed_amount,
-                                         img_hw=None if hw is None else hw[b])
-                for _ in range(draws_per_item)]) for b in range(batch)])
+            grid = _perturbed_simple_grid_dims(h, w, num_samples)
+            out = []
+            for b in range(total):
+                if not first <= b < first + batch:  # another rank's item: draw only
+                    for _ in range(draws_per_item):
+                        uniform_draws(generator, grid[0] * grid[1], num_samples)
+                    continue
+                out.append(torch.stack([
+                    sample_positions_uniform(generator, h, w, patch_dim, num_samples,
+                                             self.perturbed_amount,
+                                             img_hw=None if hw is None else hw[b - first])
+                    for _ in range(draws_per_item)]))
+            return torch.stack(out)
         if device is None:
             device = diff.device if diff is not None else torch.device("cpu")
         _, sh, sw = _cell_layout(h, w, patch_dim, num_samples)
-        draws = WeightedDraws.stack([weighted_draws(generator, sh * sw, num_samples)
-                                     for _ in range(batch * draws_per_item)]).to(device)
+        draws = [weighted_draws(generator, sh * sw, num_samples)
+                 for _ in range(total * draws_per_item)]
+        draws = WeightedDraws.stack(
+            draws[first * draws_per_item:(first + batch) * draws_per_item]).to(device)
         hw = None if img_hw is None else torch.as_tensor(img_hw).to(device)
         prob = self.sample_prob(h, w, diff, img_hw=hw, device=device)
         prob = prob.expand(batch, h, w)

@@ -175,9 +175,11 @@ global_config = OrderedDict(
     # batch to one reference size with its q-spread down to 0, while the
     # rank and Pearson losses are batch-relative (docs/PARITY.md)
     compute_dtype="bfloat16",
-    mesh_data=1,   # data / tensor / sequence parallel axis sizes: any
-    mesh_model=1,  # product > 1 raises (not ported; ROADMAP.md Queue 1
-    mesh_seq=1,    # item 9)
+    mesh_data=1,   # data / tensor / sequence parallel axis sizes of a
+    mesh_model=1,  # multi-process mesh (parallel/); their product must be
+    mesh_seq=1,    # the world size of the initialized process group, and
+    # all 1 under a world > 1 means data = world. mesh_seq > 1 runs attention
+    # through the ring; batch sizes are per data rank (global = batch * data)
     max_size_buckets=0,  # >0: pad variable-size images to <= this many
     # canonical (H, W) buckets (LIVE/KADIS); 0 = batch by exact size
     device_fault_retries=2,  # retries of an eval step on a transient fault
@@ -496,13 +498,14 @@ class DatasetFactory:
     """Caches one dataset instance per name; serves per-split loaders
     (reference DatasetFactory, train_config.py:570-613)."""
 
-    def __init__(self):
-        self.dataset_cache: Dict[str, object] = {}
-
     def get_dataset(self, dataset_name):
         if dataset_name not in self.dataset_cache:
             self.dataset_cache[dataset_name] = make_dataset_with_config_splits(dataset_name)
         return self.dataset_cache[dataset_name]
+
+    def __init__(self, process_index: int = 0, process_count: int = 1):
+        self.dataset_cache: Dict[str, object] = {}
+        self.process_index, self.process_count = process_index, process_count
 
     def get_dataloader(self, dataset_name, split_name, dataloader_params):
         dataset = self.get_dataset(dataset_name)
@@ -526,17 +529,23 @@ class DatasetFactory:
             prefetch=max(1, min(4, prefetch)),
             max_size_buckets=global_config.get("max_size_buckets", 0),
             pin_memory=pin,
+            process_index=self.process_index,
+            process_count=self.process_count,
         )
 
 
-def get_dataloaders(use_full_dataset=False, dataloader_config=None):
+def get_dataloaders(use_full_dataset=False, dataloader_config=None,
+                    process_index: int = 0, process_count: int = 1):
+    """(train, val, test loaders, factory); ``process_index`` /
+    ``process_count``: a mesh's data rank and data size (each loader
+    yields this rank's slice of global batches, ``data/pipeline.py``)."""
     validate_configs_check()
     if dataloader_config is None:
         dataloader_config = deepcopy(dataloader_config_base)
     if use_full_dataset:
         log_warn("use_full_dataset=True; all loaders use the FULL dataset.")
 
-    factory = DatasetFactory()
+    factory = DatasetFactory(process_index, process_count)
     name = dataset_target()
     pick = lambda split: SPLIT_NAME_FULL if use_full_dataset else split
 

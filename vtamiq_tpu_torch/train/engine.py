@@ -1,27 +1,41 @@
 """Training / evaluation engine: the ``train()`` orchestrator.
 
-Port of ``vtamiq_tpu/train/engine.py`` for one process and one device: the
-same phase gating (do_train/do_val/do_test), output-dir naming,
-freeze-until-epoch schedule, best/latest checkpoint policy driven by SROCC
-maxima, loss-weight decay, eval repeats with prediction averaging, scalar
-logging (with the reference's per-batch SROCC for batches > 4), prediction
-dumps, full resume with the run state, and ``checkpoint_every_n_batches``.
+Port of ``vtamiq_tpu/train/engine.py``: the same phase gating
+(do_train/do_val/do_test), output-dir naming, freeze-until-epoch schedule,
+best/latest checkpoint policy driven by SROCC maxima, loss-weight decay,
+eval repeats with prediction averaging, scalar logging (with the
+reference's per-batch SROCC for batches > 4), prediction dumps, full resume
+with the run state, and ``checkpoint_every_n_batches``.
 
 What differs from the JAX engine:
 
 - **Device.** ``global_config["device"]`` (default "cuda"); a CUDA device
   with no card raises. Batches go to it from pinned host tensors with
   ``non_blocking`` copies.
-- **Seed.** ``seed=-1`` resolves from the clock; one process, no broadcast.
+- **Seed.** ``seed=-1`` resolves from the clock (rank 0's, broadcast under
+  a mesh).
 - **Randomness.** Patch draws come from a CPU ``torch.Generator`` seeded
-  with the seed, dropout and DropPath from a generator on the device.
-- **Mesh.** ``mesh_data * mesh_model * mesh_seq > 1`` raises (ROADMAP.md
-  Queue 1 item 9).
+  with the seed, dropout and DropPath from a generator on the device; under
+  a mesh every rank draws for the global batch and keeps its rows.
+- **Mesh.** ``mesh_data``, ``mesh_model`` and ``mesh_seq`` lay a (data,
+  model, seq) mesh (``parallel/``) over the ranks of the process group,
+  which ``parallel.distributed.initialize`` (or torchrun) started before
+  ``train()``; a world above 1 with every size 1 is data = world. Each rank
+  runs on the device ``initialize`` gave it, loads its data rank's slice of
+  every global batch (batch sizes count per data rank), holds its TP shard
+  of the model, and computes the single-process step of the global batch
+  (``train/steps.py``); predictions are all-gathered, so every rank's
+  correlations and checkpoint decisions agree. Only rank 0 writes
+  checkpoints (the TP shards gathered first, so the file is a
+  single-process one), logs, YAML dumps and scalars; the test phase's
+  checkpoint is read by rank 0 and broadcast.
 - **Recovery.** Steps update the parameters and the optimizer's state in
   place (no buffer donation), so a transient fault in a train step leaves
   them half-updated: ``recover_from_latest`` rebuilds both from
   ``latest.npz`` and the batch is redone. A CUDA error that poisons the
-  context (illegal address, launch failure) is raised, never recovered.
+  context (illegal address, launch failure) is raised, never recovered;
+  under a mesh a train step's fault is raised (the other ranks would wait
+  in a collective for the step).
 - **Preference module.** With ``use_pref_module`` the module hangs off the
   model as ``pref_module`` (the JAX package keeps it in the same parameter
   tree), so one optimizer trains and decays ``pref_module.p`` with the
@@ -39,6 +53,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..inference import resolve_device
 from ..models.checkpoint import (
@@ -55,6 +70,9 @@ from ..ops.correlations import (
     compute_correlations_flat,
 )
 from ..ops.sampling import PatchSampler
+from ..parallel.comm import all_gather
+from ..parallel.mesh import (DATA_AXIS, Mesh, make_mesh, param_shardings, shard_params,
+                             shard_tensors, unshard_params, unshard_tensors)
 from ..utils import FileLogger, Logger, Max, SplitSummaryWriter
 from ..utils.logging import log, log_warn
 from ..utils.retry import is_transient, poisons_context, retry_transient
@@ -68,11 +86,6 @@ COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "mixed":
 # per-epoch host timings of the last train() call: {"train": [...],
 # "val": [...], "test": [...]}, one dict per pass (see _PhaseTimer)
 last_run_stats: Dict[str, list] = {}
-
-
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(f"{what} is not ported to vtamiq_tpu_torch yet; "
-                              f"see ROADMAP.md Queue 1 item {item}")
 
 
 # --------------------------------------------------------------------------
@@ -130,15 +143,81 @@ def _named(params: VTAMIQ) -> Dict[str, torch.Tensor]:
 
 
 def _save(output_dir: str, filename: str, params: VTAMIQ, epoch: int, srocc: float,
-          opt_state=None, extra_meta: Optional[Dict] = None):
-    """A checkpoint of the model, with the preference module apart."""
-    models = {MODEL_STATE_DICT: {k: v for k, v in params_to_jax(params).items()
+          opt_state=None, extra_meta: Optional[Dict] = None, mesh: Optional[Mesh] = None):
+    """A checkpoint of the model, with the preference module apart. Under a
+    mesh every rank calls it: the TP shards of the model and the optimizer
+    moments are gathered, then rank 0 alone writes."""
+    opt_state = opt_state if C.global_config["save_optimizer"] else None
+    state = params
+    if mesh is not None:
+        state = unshard_params(params, mesh)
+        if opt_state is not None:
+            opt_state = _map_moments(opt_state, unshard_tensors,
+                                     param_shardings(params, mesh), mesh)
+        if dist.get_rank() != 0:
+            return
+    leaves = params_to_jax(state)
+    models = {MODEL_STATE_DICT: {k: v for k, v in leaves.items()
                                  if not k.startswith("pref_module|")}}
     if hasattr(params, "pref_module"):
-        models[PREF_MODULE_STATE_DICT] = params_to_jax(params.pref_module)
-    save_checkpoint(output_dir, filename, models, epoch, srocc,
-                    opt_state=opt_state if C.global_config["save_optimizer"] else None,
+        models[PREF_MODULE_STATE_DICT] = {k[len("pref_module|"):]: v for k, v in leaves.items()
+                                          if k.startswith("pref_module|")}
+    save_checkpoint(output_dir, filename, models, epoch, srocc, opt_state=opt_state,
                     extra_meta=extra_meta)
+
+
+def _map_moments(opt_state: Dict, fn, specs, mesh: Mesh) -> Dict:
+    """A copy of an optimizer state with each moment dict passed through
+    ``fn(moments, specs, mesh)`` (``shard_tensors`` / ``unshard_tensors``)."""
+    return {k: fn(v, specs, mesh) if isinstance(v, dict) else v for k, v in opt_state.items()}
+
+
+# --------------------------------------------------------------------------
+# the mesh
+# --------------------------------------------------------------------------
+
+def _engine_mesh(g: Dict) -> Optional[Mesh]:
+    """The mesh of ``mesh_data`` x ``mesh_model`` x ``mesh_seq`` over the
+    initialized process group (a world above 1 with every size 1: data =
+    world); None for one process."""
+    d, m, s = int(g["mesh_data"]), int(g["mesh_model"]), int(g.get("mesh_seq", 1))
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if d * m * s == 1 and world == 1:
+        return None
+    if not dist.is_initialized():
+        raise ValueError(
+            f"mesh_data x mesh_model x mesh_seq = {d}x{m}x{s} needs {d * m * s} processes: "
+            "start them with torchrun, or call "
+            "vtamiq_tpu_torch.parallel.distributed.initialize() in each, before "
+            "engine.train()")
+    if d * m * s == 1:
+        d = world
+    elif d * m * s != world:
+        raise ValueError(
+            f"mesh {d}x{m}x{s} needs a world of {d * m * s} processes; the initialized "
+            f"process group has {world} (parallel.distributed.initialize, torchrun)")
+    mesh = make_mesh(data=d, model=m, seq=s)
+    if torch.device(g["device"]).type != mesh.device.type:
+        raise ValueError(f"global_config['device'] {g['device']} but this rank runs on "
+                         f"{mesh.device} (parallel.distributed.initialize's local_device)")
+    log(f"Using a mesh of {world} processes: data={d} model={m} seq={s}")
+    return mesh
+
+
+def _broadcast_int(value: int, mesh: Optional[Mesh]) -> int:
+    """Rank 0's ``value`` on every rank (itself without a mesh)."""
+    if mesh is None:
+        return value
+    t = torch.tensor([value], dtype=torch.int64, device=mesh.device)
+    dist.broadcast(t, src=0)
+    return int(t.item())
+
+
+@torch.no_grad()
+def _broadcast_params(params: VTAMIQ):
+    """Every parameter set to rank 0's, in place."""
+    for p in params.parameters():
+        dist.broadcast(p.data, src=0)
 
 
 # --------------------------------------------------------------------------
@@ -152,11 +231,23 @@ def _batch_tensors(batch, device):
     return move(batch.imgs_raw), move(batch.qs), move(batch.img_hw)
 
 
-def _collect_predictions(batch, q_p):
-    """This batch's (labels, predictions) restricted to the real items."""
-    v = batch.valid
-    return (batch.qs[:v].numpy().astype(float),
+def _collect_predictions(batch, q_p, mesh: Optional[Mesh] = None):
+    """This batch's (labels, predictions) restricted to the real items.
+    Under a mesh ``q_p`` is the global batch's (the steps gather it) and the
+    labels are all-gathered over "data", so every rank holds the same
+    global lists and its epoch correlations agree with every other's."""
+    if mesh is None:
+        v, qs = batch.valid, batch.qs
+    else:
+        v, qs = batch.global_valid, all_gather(batch.qs.to(q_p.device), mesh.group(DATA_AXIS))
+    return (qs[:v].cpu().numpy().astype(float),
             q_p[:v].detach().float().cpu().numpy().astype(float))
+
+
+def _step_valid(batch) -> int:
+    """The valid count a step masks its loss with: the global batch's under
+    a mesh."""
+    return batch.valid if batch.global_valid is None else batch.global_valid
 
 
 class _PhaseTimer:
@@ -198,20 +289,22 @@ def _scalars(metrics: Dict[str, torch.Tensor], keys) -> Dict[str, float]:
 def do_training(train_step, params, opt_state, mask, loader, generators,
                 loss_weights, *, writer, logger, is_pairwise, is_debug,
                 output_dir, checkpoint_every_n_batches, epoch, step, device,
-                recover_fn=None, stats=None):
+                recover_fn=None, stats=None, mesh=None):
     """One training epoch; returns (params, opt_state, step, correlations).
 
     ``generators``: (CPU generator for the patch draws, device generator for
     dropout). ``recover_fn``: optional () -> (params, opt_state) | None
     rebuilding the training state from the latest checkpoint, called when a
-    transient fault interrupts a step; the batch is then redone."""
+    transient fault interrupts a step; the batch is then redone.
+    ``mesh``: the steps are mesh steps; skips and saves follow the global
+    batch, so every rank takes them together."""
     q_vals, qp_vals = [], []
     sample_gen, dropout_gen = generators
     timer = _PhaseTimer(loader)
 
     for batch_i, batch in enumerate(timer.batches_of(loader)):
         raw, qs, hw = _batch_tensors(batch, device)
-        valid = batch.valid
+        valid = _step_valid(batch)
         if valid < 2:
             log_warn("Batch has < 2 valid items; skipping current batch.")
             continue
@@ -233,7 +326,7 @@ def do_training(train_step, params, opt_state, mask, loader, generators,
             params, opt_state = restored
             metrics, q_p = dispatch(params, opt_state)
 
-        y_b, yp_b = _collect_predictions(batch, q_p)
+        y_b, yp_b = _collect_predictions(batch, q_p, mesh)
         q_vals.append(y_b)
         qp_vals.append(yp_b)
         v = len(y_b)
@@ -256,7 +349,8 @@ def do_training(train_step, params, opt_state, mask, loader, generators,
         if not is_debug and (batch_i + 1) % checkpoint_every_n_batches == 0:
             logger(f"Saving latest model during training: epoch=[{epoch}], "
                    f"batch_i=[{batch_i}]")
-            _save(output_dir, f"latest.{CHECKPOINT_EXT}", params, epoch, -1, opt_state)
+            _save(output_dir, f"latest.{CHECKPOINT_EXT}", params, epoch, -1, opt_state,
+                  mesh=mesh)
 
         step += 1
 
@@ -271,7 +365,7 @@ def do_training(train_step, params, opt_state, mask, loader, generators,
 def do_validation(eval_step, params, loader, sample_gen, loss_weights, *,
                   split_name, writer, logger, is_pairwise, is_debug, device,
                   num_repeats=1, step=0, epoch=0, output_logger=None, tag="",
-                  stats=None):
+                  stats=None, mesh=None):
     """Validation/test pass with patch-resampling repeats; predictions are
     averaged across repeats (reference do_validation, train.py:583-644)."""
     ys, yps = [], []
@@ -280,11 +374,11 @@ def do_validation(eval_step, params, loader, sample_gen, loss_weights, *,
         for i, batch in enumerate(timer.batches_of(loader)):
             raw, qs, hw = _batch_tensors(batch, device)
             metrics, q_p = retry_transient(
-                eval_step, params, raw, qs, batch.valid, loss_weights, sample_gen, hw,
-                max_retries=C.global_config.get("device_fault_retries", 2),
-                log=log_warn)
+                eval_step, params, raw, qs, _step_valid(batch), loss_weights, sample_gen, hw,
+                max_retries=0 if mesh is not None else
+                C.global_config.get("device_fault_retries", 2), log=log_warn)
 
-            y_b, yp_b = _collect_predictions(batch, q_p)
+            y_b, yp_b = _collect_predictions(batch, q_p, mesh)
             ys.append(y_b)
             yps.append(yp_b)
 
@@ -340,16 +434,17 @@ def train():
     assert not (is_debug and is_test_only), "Debug mode disables saving; can't run test-only."
     assert do_train_ or do_test_, "Run must have at least training or testing stage."
     assert not (not do_train_ and do_val_), "Validation requires training."
-    if g["mesh_data"] * g["mesh_model"] * int(g.get("mesh_seq", 1)) > 1:
-        _not_ported("A device mesh (mesh_data * mesh_model * mesh_seq > 1)", 9)
-    device = resolve_device(g["device"])
+    mesh = _engine_mesh(g)
+    device = resolve_device(g["device"]) if mesh is None else mesh.device
+    # rank 0 writes every file; the others run the same decisions silently
+    writes = not is_debug and (mesh is None or dist.get_rank() == 0)
 
     cfg = C.build_model_config()
     checkpoint_file = g["load_checkpoint_file"]
 
     seed = g["seed"]
     if seed == -1:
-        seed = int(time.time()) % (2 ** 31)
+        seed = _broadcast_int(int(time.time()) % (2 ** 31), mesh)
     # written back: the loaders read global_config["seed"] and save_configs
     # records the resolved value
     g["seed"] = seed
@@ -361,7 +456,7 @@ def train():
                               use_pref_module=use_pref_module, device=device)
 
     # output dir naming (reference train.py:680-731)
-    output_dir = g["output_dir"] + "/{}".format(int(time.time()))
+    output_dir = g["output_dir"] + "/{}".format(_broadcast_int(int(time.time()), mesh))
     output_dir += "-" + C.dataset_target() + "-" + g["model"]
     output_dir += "-{}-{}L-{}R".format(cfg.vit.variant, cfg.vit.effective_num_layers,
                                        C.vtamiq_config["num_rcabs"])
@@ -388,14 +483,14 @@ def train():
         output_dir += f"-{g['output_tag']}"
     g["output_dir_final"] = output_dir
 
-    save_val_outputs = g["save_val_outputs"] and not is_debug
-    save_test_outputs = g["save_test_outputs"] and not is_debug
+    save_val_outputs = g["save_val_outputs"] and writes
+    save_test_outputs = g["save_test_outputs"] and writes
     output_qs_path = output_dir + "/" + g["save_test_outputs_txt"]
     val_logger = FileLogger(output_qs_path if save_val_outputs else None, verbose=False)
     test_logger = FileLogger(output_qs_path if save_test_outputs else None, verbose=False)
 
-    if is_debug:
-        logger_run = Logger(verbose=is_verbose)
+    if not writes:
+        logger_run = Logger(verbose=is_verbose and is_debug)
         writer = None
     else:
         os.makedirs(output_dir, exist_ok=True)
@@ -411,7 +506,9 @@ def train():
     train_xor = (do_train_ ^ do_val_ ^ do_test_) and not (do_train_ and do_val_ and do_test_)
     use_full_dataset = train_xor and g["allow_use_full_dataset"]
     loader_train, loader_val, loader_test, _factory = C.get_dataloaders(
-        use_full_dataset=use_full_dataset)
+        use_full_dataset=use_full_dataset,
+        process_index=0 if mesh is None else mesh.index(DATA_AXIS),
+        process_count=1 if mesh is None else mesh.size(DATA_AXIS))
 
     checkpoint_every_n_batches = g["checkpoint_every_n_batches"]
     if checkpoint_every_n_batches <= 0:
@@ -470,17 +567,17 @@ def train():
         train_step = make_train_step(
             cfg, sampler, make_ecfg(C.SPLIT_NAME_TRAIN), optimizer,
             is_pairwise=is_pairwise, use_pref_module=use_pref_module,
-            weighted_loss=g["use_weighted_loss"], compute_dtype=compute_dtype)
+            weighted_loss=g["use_weighted_loss"], compute_dtype=compute_dtype, mesh=mesh)
     if do_val_:
         eval_step_val = make_eval_step(
             cfg, sampler, make_ecfg(C.SPLIT_NAME_VAL), is_pairwise=is_pairwise,
             use_pref_module=use_pref_module, weighted_loss=g["use_weighted_loss"],
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, mesh=mesh)
     if do_test_:
         eval_step_test = make_eval_step(
             cfg, sampler, make_ecfg(C.SPLIT_NAME_TEST), is_pairwise=is_pairwise,
             use_pref_module=use_pref_module, weighted_loss=g["use_weighted_loss"],
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, mesh=mesh)
 
     # freeze state
     frozen_model = False
@@ -496,8 +593,14 @@ def train():
     if g["print_flops"]:
         print_flops(cfg, C.dataloader_config_base[C.SPLIT_NAME_TRAIN][C.PATCH_COUNT], log=log)
     print_parameters(params, full=g["print_params"] or is_debug, log=log)
-    if not is_debug:
+    if writes:
         save_model_params(params, output_dir)
+    if mesh is not None:
+        # the full model and optimizer state (resumed above) cut to this
+        # rank's tensor-parallel shard
+        specs = param_shardings(params, mesh)
+        opt_state = _map_moments(opt_state, shard_tensors, specs, mesh)
+        params = shard_params(params, mesh)
 
     logger_run("Configuration completed.")
 
@@ -509,7 +612,7 @@ def train():
         """(params, opt_state) rebuilt from latest.npz after a transient
         fault in a train step; None when no checkpoint exists yet."""
         path = os.path.join(output_dir, f"latest.{CHECKPOINT_EXT}")
-        if is_debug or not os.path.isfile(path):
+        if is_debug or mesh is not None or not os.path.isfile(path):
             return None
         ckpt = load_checkpoint(path)
         p = get_model_params(cfg, path, force_load_pretrained=True, seed=seed,
@@ -564,7 +667,7 @@ def train():
             meta["best_srocc_val"] = best_spearman_val.value()
         return meta
 
-    if not is_debug:
+    if writes:
         C.save_configs(output_dir)
         C.save_code(output_dir)
 
@@ -590,7 +693,7 @@ def train():
                 is_pairwise=is_pairwise, is_debug=is_debug, output_dir=output_dir,
                 checkpoint_every_n_batches=checkpoint_every_n_batches,
                 epoch=epoch, step=global_step_train, device=device,
-                recover_fn=recover_from_latest, stats=stats["train"])
+                recover_fn=recover_from_latest, stats=stats["train"], mesh=mesh)
 
             if not is_debug and writer is not None:
                 # the LR this epoch's updates used (the schedule reads the
@@ -613,7 +716,7 @@ def train():
                 logger_run(f"Saving latest model: epoch=[{epoch}], "
                            f"SROCC=[{correlations[SROCC_FIELD]}]")
                 _save(output_dir, f"latest.{CHECKPOINT_EXT}", params, epoch,
-                      correlations[SROCC_FIELD], opt_state, extra_meta=run_meta())
+                      correlations[SROCC_FIELD], opt_state, extra_meta=run_meta(), mesh=mesh)
 
         if do_val_:
             log("Starting Validation loop...")
@@ -622,7 +725,8 @@ def train():
                 split_name=C.SPLIT_NAME_VAL, writer=writer, logger=logger_run,
                 is_pairwise=is_pairwise, is_debug=is_debug, device=device,
                 num_repeats=g["num_repeats_val"], step=global_step_val,
-                epoch=epoch, output_logger=val_logger, tag="val", stats=stats["val"])
+                epoch=epoch, output_logger=val_logger, tag="val", stats=stats["val"],
+                mesh=mesh)
 
             is_best_so_far = best_spearman_val.add(correlations[SROCC_FIELD])
             if is_best_so_far:
@@ -639,7 +743,7 @@ def train():
                 if not is_debug:
                     logger_run(f"Saving best model: epoch=[{epoch}], SROCC=[{best_spearman}]")
                     _save(output_dir, f"best.{CHECKPOINT_EXT}", params, epoch,
-                          best_spearman, opt_state, extra_meta=run_meta())
+                          best_spearman, opt_state, extra_meta=run_meta(), mesh=mesh)
             elif correlations is not None:
                 logger_run(f"Current SROCC {correlations[SROCC_FIELD]}.")
 
@@ -660,8 +764,15 @@ def train():
                 output_dir,
                 "latest" if (g["test_use_latest"] and g["train_save_latest"]) else "best",
                 CHECKPOINT_EXT)
-            params = get_model_params(cfg, saved, force_load_pretrained=True, seed=seed,
-                                      use_pref_module=use_pref_module, device=device)
+            if mesh is None:
+                params = get_model_params(cfg, saved, force_load_pretrained=True, seed=seed,
+                                          use_pref_module=use_pref_module, device=device)
+            else:  # the checkpoint is rank 0's: it reads it and broadcasts
+                params = get_model_params(cfg, saved if writes else None,
+                                          force_load_pretrained=True, seed=seed,
+                                          use_pref_module=use_pref_module, device=device)
+                _broadcast_params(params)
+                params = shard_params(params, mesh)
             if pref_keep is not None:
                 with torch.no_grad():
                     params.pref_module.p.copy_(pref_keep)
@@ -671,7 +782,7 @@ def train():
             split_name=C.SPLIT_NAME_TEST, writer=writer, logger=logger_run,
             is_pairwise=is_pairwise, is_debug=is_debug, device=device,
             num_repeats=g["num_repeats_test"], output_logger=test_logger,
-            tag="test", stats=stats["test"])
+            tag="test", stats=stats["test"], mesh=mesh)
 
         if correlations is not None:
             logger_run(
@@ -680,7 +791,7 @@ def train():
                     SROCC_FIELD, KROCC_FIELD, PLCC_FIELD, RMSE_FIELD,
                     PLCC_NOFIT_FIELD, RMSE_NOFIT_FIELD)))
 
-    if not is_debug and writer is not None:
+    if writer is not None:
         writer.close()
 
     return correlations

@@ -71,9 +71,19 @@ def make_lr_schedule(global_config: Mapping, steps_per_epoch: int) -> Callable:
     return lambda count: base(count // max(1, steps_per_epoch))
 
 
-def global_norm(tree: Tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element of every tensor (fp32)."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tree.values()))
+def global_norm(tree: Tensors, sharded=(), group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element of every tensor (fp32).
+    Under tensor parallelism the tensors named in ``sharded`` are this
+    rank's shards: their squares are summed over the model ranks of
+    ``group`` and the replicated tensors count once, so every rank gets the
+    norm of the full tree."""
+    squares = [torch.sum(torch.square(t.float())) for n, t in tree.items() if n not in sharded]
+    total = sum(squares) if squares else torch.zeros(())
+    if group is not None and sharded:
+        from ..parallel.comm import all_reduce
+        shards = sum(torch.sum(torch.square(tree[n].float())) for n in sharded)
+        total = total + all_reduce(shards, group)
+    return torch.sqrt(total)
 
 
 class Optimizer:
@@ -101,8 +111,12 @@ class Optimizer:
             state["mu"], state["nu"] = zeros(), zeros()
         return state
 
-    def update(self, grads: Tensors, state: Dict, params: Tensors) -> Tensors:
-        g_norm = global_norm(grads)
+    def update(self, grads: Tensors, state: Dict, params: Tensors,
+               g_norm: Optional[torch.Tensor] = None) -> Tensors:
+        """``g_norm``: the global norm of ``grads`` when the caller has it
+        (``global_norm`` over tensor-parallel shards); else computed here."""
+        if g_norm is None:
+            g_norm = global_norm(grads)
         clip = g_norm < self.max_norm
         u = {n: torch.where(clip, g, (g / g_norm) * self.max_norm) for n, g in grads.items()}
         wd = self.weight_decay
